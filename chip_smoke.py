@@ -1,0 +1,349 @@
+"""Smoke run of the PyTorch/CUDA cell scanner on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  2. build every CUDA kernel from ``lte_cell_scanner_tpu_torch/csrc``
+     with nvcc (sm_90a), one nvcc per source, all started together;
+  3. kernel phase at full width (T = 93 templates: +-100 ppm at 739 MHz;
+     one 80 ms capture of 153600 samples): each kernel against its plain
+     PyTorch version on the same inputs, then timed (CUDA events, median
+     of 20 windows of 10 calls after warm-up) beside its plain version and
+     a library yardstick, and its bound computed from this run's inputs;
+  4. main path: ``cell_search`` on a synthetic two-cell capture, once on
+     the float capture (bf16 kernel) and once on the same capture
+     quantized to the 8-bit ADC grid (int8 kernel); launch counts are
+     zeroed just before and read just after each run; both cells must
+     decode, and the cells must match the port's own float64 CPU run
+     of the same capture; then per-stage seconds per carrier (median of
+     5 after a warm-up);
+  5. one cell_search under torch.profiler: the device's busy share and
+     the device operations that take the most time;
+  6. one JSON line of kernel records, then the result line.
+
+Exits non-zero, printing no result line, without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+FC = 739e6
+PPM = 100.0
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
+# HBM3 bandwidth
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_BYTES = 3.35e12
+KERNEL_SOURCE = "lte_cell_scanner_tpu_torch/csrc/pss_corr.cu"
+REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:407",
+            "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:416"}
+BF16_RTOL = 2.0 ** -7      # one bf16 ulp relative to the value
+BF16_ATOL_REL = 1e-5       # x the map's max, where Re/Im cancel
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def time_cuda(fn, reps: int = 20, per_rep: int = 10, warmup: int = 3
+              ) -> float:
+    """Median milliseconds of one fn() call: ``reps`` windows of
+    ``per_rep`` back-to-back calls, one CUDA event pair per window, so the
+    host's launch cost overlaps the device's work as in a pipeline."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_rep):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_rep)
+    return statistics.median(times)
+
+
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    return smi
+
+
+def phase_build() -> None:
+    from lte_cell_scanner_tpu_torch.cuda_build import SOURCES, build
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        secs, log = build(name)
+        print(f"built {name} in {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {line.strip()}")
+    print(f"build phase: {time.perf_counter() - t0:.2f} s")
+
+
+def kernel_operands(capbuf: np.ndarray, f_set: np.ndarray):
+    """The capture and template operands the main path hands the
+    kernel, built by the main path's own staging."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.xcorr import _front_staging
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    dev = torch.device("cuda")
+    cap_t, _tmpl, _starts, kern, _n = _front_staging(
+        capbuf, f_set, FC, FC, FS_WORK, "auto", dev, None, True)
+    if kern.precision == "int8":
+        cap_q = corr_cuda.capture_planes_int8(cap_t)
+    else:
+        cap_q = corr_cuda.capture_planes_bf16(cap_t)
+    return kern, cap_q
+
+
+def bound(precision: str, cap_q, taps, n_lags: int):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth (each
+    input read once, the output written once) and the useful
+    multiply-adds over the tensor-core peak of the operand type."""
+    n_t = taps.shape[1]
+    out_bytes = n_t * n_lags * 2
+    in_bytes = cap_q.numel() * cap_q.element_size() \
+        + taps.numel() * taps.element_size()
+    ops = 2.0 * 4 * n_t * n_lags * taps.shape[2]
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    t_ops = ops / PEAK_OPS[precision]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_call(cap_q, taps, n_lags: int):
+    """One PyTorch call computing the same correlation (Re and Im, without
+    the |.|^2 epilogue): conv1d of the [1, 2, N] planes with [2T, 2, 137]
+    weights, in bf16 (cuDNN, TF32 off).  Used only as a yardstick."""
+    x = cap_q.to(torch.bfloat16)[None]
+    t = taps.to(torch.bfloat16)
+    w = torch.cat([torch.stack([t[0], -t[1]], dim=1),
+                   torch.stack([t[1], t[0]], dim=1)], dim=0).contiguous()
+
+    def run():
+        return torch.nn.functional.conv1d(x, w)[..., :n_lags]
+    return run
+
+
+def check_kernel(precision: str, kern, cap_q, n_lags: int) -> dict:
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    wrapper = corr_cuda.corr_pow_int8 if precision == "int8" \
+        else corr_cuda.corr_pow_bf16
+    plain = corr_cuda.corr_pow_int8_plain if precision == "int8" \
+        else corr_cuda.corr_pow_bf16_plain
+    got = wrapper(cap_q, kern.taps, n_lags)
+    torch.cuda.synchronize()
+    ref = plain(cap_q, kern.taps, n_lags)
+    if got.shape != ref.shape or got.dtype != torch.bfloat16:
+        fail(f"{precision} kernel: shape/dtype {tuple(got.shape)} "
+             f"{got.dtype}")
+    g = got.float()
+    r = ref.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{precision} kernel: non-finite output")
+    err = (g - r).abs()
+    max_abs_err = float(err.max())
+    if precision == "int8":
+        n_diff = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+        print(f"int8 kernel vs plain: {n_diff} of {got.numel()} entries "
+              f"differ (bit-equal required)")
+        if n_diff:
+            fail("int8 kernel disagrees with its plain version")
+    else:
+        tol = BF16_RTOL * torch.maximum(g.abs(), r.abs()) \
+            + BF16_ATOL_REL * float(r.max())
+        n_bad = int((err > tol).sum())
+        n_diff = int((err > 0).sum())
+        print(f"bf16 kernel vs plain: max |err| {max_abs_err:.3e} (map max "
+              f"{float(r.max()):.3e}); {n_diff} entries differ, {n_bad} "
+              f"beyond 1 bf16 ulp + 1e-5 x max")
+        if n_bad:
+            fail("bf16 kernel disagrees with its plain version")
+
+    ms = time_cuda(lambda: wrapper(cap_q, kern.taps, n_lags))
+    plain_ms = time_cuda(lambda: plain(cap_q, kern.taps, n_lags))
+    library_ms = time_cuda(library_call(cap_q, kern.taps, n_lags))
+    bound_ms, bound_by = bound(precision, cap_q, kern.taps, n_lags)
+    print(f"{precision} kernel: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"library conv1d {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"name": f"pss_corr_{precision}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[precision],
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def expect_cells(cells, label: str) -> None:
+    from lte_cell_scanner_tpu_torch.sim.scenarios import TWO_CELL_TRUTH
+    ids = sorted(c.n_id_cell() for c in cells)
+    if ids != sorted(TWO_CELL_TRUTH):
+        fail(f"{label}: decoded cells {ids}, expected "
+             f"{sorted(TWO_CELL_TRUTH)}")
+    for c in cells:
+        truth = TWO_CELL_TRUTH[c.n_id_cell()]
+        if (c.n_rb_dl != 6 or c.n_ports != truth["n_ports"]
+                or c.sfn not in (truth["sfn"], truth["sfn"] + 1)):
+            fail(f"{label}: wrong MIB for {c}")
+        if not abs(c.freq_superfine - 35e3) < 50.0:
+            fail(f"{label}: freq_superfine {c.freq_superfine} for {c}")
+
+
+def run_main_path(label: str, capbuf, f_set, precision: str, counts: dict):
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+
+    corr_cuda.reset_launch_counts()
+    cells = cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cuda")
+    torch.cuda.synchronize()
+    launched = dict(corr_cuda.LAUNCHES)
+    print(f"{label}: launches {launched}")
+    name = f"pss_corr_{precision}"
+    if launched[name] < 1:
+        fail(f"{label}: the main path never launched {name}")
+    if sum(launched.values()) != launched[name]:
+        fail(f"{label}: the main path launched another kernel: {launched}")
+    counts[name] = launched[name]
+    for c in cells:
+        print(f"  {c}")
+    expect_cells(cells, label)
+
+    ref = cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cpu")
+    expect_cells(ref, f"{label} (float64 CPU run)")
+    by_id = {c.n_id_cell(): c for c in ref}
+    for c in cells:
+        r = by_id[c.n_id_cell()]
+        print(f"  cell {c.n_id_cell()}: vs float64 CPU run "
+              f"d(freq_fine) {c.freq_fine - r.freq_fine:+.4f} Hz, "
+              f"d(freq_superfine) {c.freq_superfine - r.freq_superfine:+.4f}"
+              f" Hz, d(frame_start) {c.frame_start - r.frame_start:+.4f}")
+        if (c.n_id_1, c.cp_type, c.sfn, c.n_ports) != \
+                (r.n_id_1, r.cp_type, r.sfn, r.n_ports):
+            fail(f"{label}: cell {c.n_id_cell()} differs from the float64 "
+                 f"CPU run: {c} vs {r}")
+
+    runs = []
+    for _ in range(5):
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cuda",
+                    timings=timings)
+        torch.cuda.synchronize()
+        timings["total"] = time.perf_counter() - t0
+        runs.append(timings)
+    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"{label}: seconds per carrier (median of 5): " + ", ".join(
+        f"{k} {v:.5f}" for k, v in stages.items()))
+    print(f"{label}: pss_scan_samples_per_sec "
+          f"{capbuf.shape[0] / stages['front_end']:.1f}")
+
+
+def phase_profile(capbuf, f_set) -> None:
+    """One cell_search under torch.profiler: the device's busy share of the
+    run's wall time and the device operations that take the most of it.
+    The profiler's own cost lengthens the wall time, so the share is a
+    lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        print("profiled run: no device events; device busy share not "
+              "measured")
+        return
+    busy = sum(e.device_time_total for e in ops) / 1e6
+    by_name = {}
+    for e in ops:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time_total)
+    print(f"profiled run (float capture): wall {wall:.5f} s, device busy "
+          f"{busy:.5f} s ({100.0 * busy / wall:.1f}%), {len(ops)} device "
+          f"operations")
+    for name, (n, t) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {t / 1e3:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", flush=True)
+        return 1
+    from lte_cell_scanner_tpu_torch.constants import CAPLENGTH, PSS_TD_LEN
+    from lte_cell_scanner_tpu_torch.models.search import default_f_search_set
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.sim.scenarios import (adc_quantize,
+                                                          two_cell_capture)
+
+    smi = phase_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32: matmul off, cudnn off")
+    phase_build()
+
+    f_set = default_f_search_set(FC, PPM)
+    cap_float = two_cell_capture(seed=0, f_off=35e3, fc=FC)
+    cap_adc = adc_quantize(cap_float)
+    if corr_cuda.is_adc_grid(cap_float) or not corr_cuda.is_adc_grid(cap_adc):
+        fail("capture routing: float/ADC grid check")
+    n_lags = CAPLENGTH - (PSS_TD_LEN - 1)
+    print(f"full width: T = {3 * len(f_set)} templates, {CAPLENGTH} "
+          f"samples, {n_lags} lags")
+
+    records = {}
+    for precision, cap in (("bf16", cap_float), ("int8", cap_adc)):
+        kern, cap_q = kernel_operands(cap, f_set)
+        if kern.precision != precision:
+            fail(f"staging picked {kern.precision} for the {precision} "
+                 f"capture")
+        records[precision] = check_kernel(precision, kern, cap_q, n_lags)
+
+    counts = {}
+    run_main_path("float capture", cap_float, f_set, "bf16", counts)
+    run_main_path("ADC-grid capture", cap_adc, f_set, "int8", counts)
+    phase_profile(cap_float, f_set)
+
+    kernels = []
+    for precision in ("bf16", "int8"):
+        rec = records[precision]
+        rec["launches"] = counts[rec["name"]]
+        kernels.append(rec)
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

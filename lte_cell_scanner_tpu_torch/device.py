@@ -1,0 +1,48 @@
+"""Device and dtype policy of the port.
+
+Entry points run on the card unless the caller names another device.
+On CUDA the working types are complex64/float32 (the accelerator's
+types); on the CPU they stay complex128/float64 so results can be held
+against the reference implementation at its double-precision tolerances.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the card; anything else as torch reads it."""
+    return torch.device("cuda" if device is None else device)
+
+
+def complex_dtype(device: torch.device) -> torch.dtype:
+    return torch.complex64 if device.type == "cuda" else torch.complex128
+
+
+def real_dtype(device: torch.device) -> torch.dtype:
+    return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def to_capture(capbuf, device: torch.device) -> torch.Tensor:
+    """A host capture as a complex tensor in the device's working type."""
+    if isinstance(capbuf, torch.Tensor):
+        return capbuf.to(device=device, dtype=complex_dtype(device))
+    arr = np.asarray(capbuf).astype(
+        np.complex64 if device.type == "cuda" else np.complex128)
+    return torch.from_numpy(arr).to(device)
+
+
+def tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host array -> tensor on ``device`` (float/complex follow the
+    device's working precision unless ``dtype`` is given)."""
+    arr = np.asarray(x)
+    if dtype is None:
+        if np.iscomplexobj(arr):
+            dtype = complex_dtype(device)
+        elif np.issubdtype(arr.dtype, np.floating):
+            dtype = real_dtype(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device=device, dtype=dtype) if dtype is not None \
+        else t.to(device)

@@ -1,0 +1,128 @@
+"""Channel impairments for self-tests and fault injection.
+
+Mirrors the reference's simulation toolbox: AWGN injection (the
+--noise-power flag / blnoise, reference dsp.h:143-147,
+LTE-Tracker.cpp:248-255), carrier frequency offset, and the coupled
+sample-clock offset implied by the shared crystal (k_factor model,
+searcher.cpp:18-43).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..constants import FS_WORK
+
+
+def awgn(sig: np.ndarray, snr_db: float,
+         rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Add complex white Gaussian noise at the given SNR."""
+    rng = rng or np.random.default_rng()
+    sp = float(np.mean(np.abs(sig) ** 2))
+    npow = sp / (10.0 ** (snr_db / 10.0))
+    noise = (rng.normal(size=len(sig)) + 1j * rng.normal(size=len(sig))) \
+        * np.sqrt(npow / 2.0)
+    return sig + noise
+
+
+def apply_freq_offset(sig: np.ndarray, f_off: float,
+                      fs: float = FS_WORK) -> np.ndarray:
+    """Mix the signal up by f_off Hz."""
+    t = np.arange(len(sig))
+    return sig * np.exp(1j * 2 * np.pi * f_off * t / fs)
+
+
+def apply_coupled_offset(sig: np.ndarray, f_off: float, fc: float,
+                         fs: float = FS_WORK, up: int = 32) -> np.ndarray:
+    """Dongle-crystal model: carrier offset WITH the coupled clock error.
+
+    A single crystal drives both the tuner LO and the sampler
+    (reference k_factor derivation, searcher.cpp:18-43): a crystal
+    error eps makes the receiver tune fc(1+eps) -- an apparent carrier
+    offset f_off = -fc*eps -- and simultaneously sample at fs(1+eps).
+    This emulates both effects on an ideal-clock signal: mix by f_off,
+    then resample with apply_clock_offset at k = 1+eps = (fc-f_off)/fc
+    (exactly the reference's k_factor).
+
+    The plain apply_freq_offset leaves the clock ideal, so the
+    tracker's k_factor compensation shows up as an apparent
+    fs*f_off/fc frame-timing drift; through THIS channel the k_factor
+    model is exercised positively and timing must hold still.
+    """
+    mixed = apply_freq_offset(sig, f_off, fs)
+    return apply_clock_offset(mixed, (fc - f_off) / fc, up=up)
+
+
+def apply_clock_offset(sig: np.ndarray, k_factor: float,
+                       up: int = 32) -> np.ndarray:
+    """Emulate a sampler running at fs*k_factor on an ideal-clock signal.
+
+    Output sample n is the signal at nominal position n/k_factor,
+    resampled via interpft x`up` + linear interpolation between fine
+    samples (the reference's own resampling recipe,
+    rtl_sdr_check.cpp:332-351; interpolation error ~(1/up)^2).
+    """
+    n = len(sig)
+    # long signals: resample in overlapped chunks so the fine grid
+    # (n*up complex) never materializes whole
+    chunk = 1 << 18
+    if n > chunk:
+        guard = 256
+        out = np.empty(n, dtype=np.complex128)
+        start = 0
+        while start < n:
+            stop = min(start + chunk, n)
+            # nominal positions needed for output [start, stop)
+            p0 = start / k_factor
+            p1 = (stop - 1) / k_factor
+            lo = max(0, int(np.floor(p0)) - guard)
+            hi = min(n, int(np.ceil(p1)) + guard)
+            seg = apply_clock_offset_positions(
+                sig[lo:hi], (np.arange(start, stop) / k_factor) - lo, up)
+            out[start:stop] = seg
+            start = stop
+        return out
+    return apply_clock_offset_positions(sig, np.arange(n) / k_factor, up)
+
+
+def apply_clock_offset_positions(sig: np.ndarray, pos: np.ndarray,
+                                 up: int) -> np.ndarray:
+    """Evaluate sig at fractional positions via interpft + linear interp."""
+    n = len(sig)
+    fine = _interpft(sig, n * up)
+    # clamp positions BEFORE splitting into (index, frac) so tail samples
+    # hold the last fine value instead of blending a mismatched pair
+    posu = np.clip(pos * up, 0.0, n * up - 1.0)
+    i0 = np.minimum(np.floor(posu).astype(np.int64), n * up - 2)
+    frac = posu - i0
+    return fine[i0] * (1.0 - frac) + fine[i0 + 1] * frac
+
+
+def _interpft(x: np.ndarray, n_y: int) -> np.ndarray:
+    """FFT-based resampling of x to length n_y, matlab interpft
+    semantics (reference dsp.cpp:52-91): zero-pad the spectrum in the
+    middle, splitting an even-length Nyquist bin; if n_y is not a
+    multiple of len(x), upsample to a multiple then decimate."""
+    x = np.asarray(x)
+    n_x = x.shape[-1]
+    if n_y <= 0:
+        raise ValueError("n_y must be positive")
+    n_up = int(np.ceil(n_y / n_x)) * n_x
+    X = np.fft.fft(x, axis=-1)
+    nyqst = (n_x + 1) // 2
+    head = X[..., :nyqst]
+    tail = X[..., nyqst:]
+    pad = np.zeros(x.shape[:-1] + (n_up - n_x,), dtype=X.dtype)
+    if n_x % 2 == 0:
+        nyq = X[..., nyqst: nyqst + 1] / 2.0
+        Xup = np.concatenate(
+            [head[..., :nyqst], nyq, pad[..., :-1], nyq,
+             tail[..., 1:]], axis=-1)
+    else:
+        Xup = np.concatenate([head, pad, tail], axis=-1)
+    y = np.fft.ifft(Xup, axis=-1) * (n_up / n_x)
+    if n_up != n_y and n_up % n_y == 0:
+        return y[..., :: n_up // n_y]
+    return y[..., :n_y]
