@@ -5,22 +5,48 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel from ``lte_cell_scanner_tpu_torch/csrc``
-     with nvcc (sm_90a), one nvcc per source, all started together;
-  3. kernel phase at full width (T = 93 templates: +-100 ppm at 739 MHz;
-     one 80 ms capture of 153600 samples): each kernel against its plain
-     PyTorch version on the same inputs, then timed (CUDA events, median
-     of 20 windows of 10 calls after warm-up) beside its plain version and
-     a library yardstick, and its bound computed from this run's inputs;
-  4. main path: ``cell_search`` on a synthetic two-cell capture, once on
-     the float capture (bf16 kernel) and once on the same capture
+     with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
+     sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``), all started
+     together;
+  3. kernel phase at full width for the v2 kernels (T = 93 templates:
+     +-100 ppm at 739 MHz; one 80 ms capture of 153600 samples): each
+     kernel against its plain PyTorch version on the same inputs, then
+     timed (CUDA events, median of 20 windows of 10 calls after warm-up)
+     beside its plain version and a library yardstick, and its bound
+     computed from this run's inputs;
+  4. single-carrier path: ``cell_search`` on a synthetic two-cell capture,
+     once on the float capture (bf16 kernel) and once on the same capture
      quantized to the 8-bit ADC grid (int8 kernel); launch counts are
      zeroed just before and read just after each run; both cells must
      decode, and the cells must match the port's own float64 CPU run
-     of the same capture; then per-stage seconds per carrier (median of
-     5 after a warm-up);
+     of the same capture; then s_per_carrier (median of 5 plain runs
+     after a warm-up) and seconds by stage (median of 5 more runs, each
+     stage synchronised);
   5. one cell_search under torch.profiler: the device's busy share and
      the device operations that take the most time;
-  6. one JSON line of kernel records, then the result line.
+  6. kernel phase at full width for the fused v4 kernels: C = 64 carriers
+     (one chunk), T = 93, n_comb = 15, staged by the band scan's own
+     planning from the first 64 carriers of ``band_captures`` (float band
+     for bf16, ADC-grid band for int8; the host seconds of each staging
+     step printed): each kernel against its plain
+     version (int8 bit-equal, bf16 within 1e-5 x max), timed beside its
+     plain version and a cuDNN bf16 conv1d yardstick over the 64-carrier
+     stack (the correlation only, without |.|^2 and the fold);
+  7. band-scan path: ``scan_band`` over the 101-carrier 10 MHz band
+     (chunks of 64 + 37), float band and ADC-grid band; launch counts
+     zeroed just before and read just after each run: exactly 2 launches
+     of the route's v4 kernel and none of any other; cells 277 and 271
+     with their MIB on 739.0, 744.0 and 749.0 MHz, freq_superfine within
+     50 Hz of each carrier's simulated offset, nothing elsewhere, and
+     each cell equal (ID, CP, SFN, ports) to the single-carrier
+     ``cell_search`` of the same capture on the card; then seconds per
+     band and carriers_per_s through MIB (median of 3 plain runs after a
+     warm-up), and seconds by stage (staging, front_end, sss_foe, decode,
+     total; median of 3 more runs, each stage synchronised);
+  8. one band scan under torch.profiler (float band): busy share and top
+     device operations;
+  9. one JSON line of kernel records (all four kernels), then the result
+     line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -32,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,8 +70,12 @@ PPM = 100.0
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCE = "lte_cell_scanner_tpu_torch/csrc/pss_corr.cu"
+FOLD_SOURCE = "lte_cell_scanner_tpu_torch/csrc/pss_corr_fold.cu"
 REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:407",
             "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:416"}
+FOLD_REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:774",
+                 "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:792"}
+CHUNK = 64                 # carriers per band-scan chunk (scan_band default)
 BF16_RTOL = 2.0 ** -7      # one bf16 ulp relative to the value
 BF16_ATOL_REL = 1e-5       # x the map's max, where Re/Im cancel
 
@@ -89,8 +120,10 @@ def phase_card() -> str:
 def phase_build() -> None:
     from lte_cell_scanner_tpu_torch.cuda_build import SOURCES, build
     t0 = time.perf_counter()
-    for name in SOURCES:
-        secs, log = build(name)
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = list(zip(SOURCES, pool.map(build, SOURCES)))
+    for name, (secs, log) in builds:
         print(f"built {name} in {secs:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -241,39 +274,58 @@ def run_main_path(label: str, capbuf, f_set, precision: str, counts: dict):
             fail(f"{label}: cell {c.n_id_cell()} differs from the float64 "
                  f"CPU run: {c} vs {r}")
 
-    runs = []
-    for _ in range(5):
-        timings = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cuda",
-                    timings=timings)
-        torch.cuda.synchronize()
-        timings["total"] = time.perf_counter() - t0
-        runs.append(timings)
-    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    print(f"{label}: seconds per carrier (median of 5): " + ", ".join(
-        f"{k} {v:.5f}" for k, v in stages.items()))
+    totals, stages = timed_runs(lambda timings: cell_search(
+        capbuf, f_set, FC, FC, FS_WORK, device="cuda", timings=timings), 5)
+    print(f"{label}: s_per_carrier {statistics.median(totals):.5f} (median "
+          f"of 5 after a warm-up; " + ", ".join(f"{t:.5f}" for t in totals)
+          + ")")
+    print(f"{label}: seconds per carrier by stage (median of 5 more, each "
+          f"stage synchronised): " + ", ".join(
+              f"{k} {v:.5f}" for k, v in stages.items()))
     print(f"{label}: pss_scan_samples_per_sec "
           f"{capbuf.shape[0] / stages['front_end']:.1f}")
 
 
-def phase_profile(capbuf, f_set) -> None:
-    """One cell_search under torch.profiler: the device's busy share of the
+def timed_runs(run, n: int):
+    """(totals, stages) of ``run(timings)``: after one warm-up, the wall
+    seconds of n runs without stage timings, synchronised at both ends
+    (the end-to-end metric), then the median per-stage seconds of n runs
+    with them (each stage synchronises the card at both ends, so these
+    runs are slower and give only the breakdown)."""
+    run(None)
+    totals = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(None)
+        torch.cuda.synchronize()
+        totals.append(time.perf_counter() - t0)
+    runs = []
+    for _ in range(n):
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(timings)
+        torch.cuda.synchronize()
+        timings["total"] = time.perf_counter() - t0
+        runs.append(timings)
+    return totals, {k: statistics.median(r[k] for r in runs)
+                    for k in runs[0]}
+
+
+def phase_profile(label: str, run) -> None:
+    """One run() under torch.profiler: the device's busy share of the
     run's wall time and the device operations that take the most of it.
     The profiler's own cost lengthens the wall time, so the share is a
     lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from lte_cell_scanner_tpu_torch.constants import FS_WORK
-    from lte_cell_scanner_tpu_torch.models.search import cell_search
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cell_search(capbuf, f_set, FC, FC, FS_WORK, device="cuda")
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -286,12 +338,206 @@ def phase_profile(capbuf, f_set) -> None:
     for e in ops:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time_total)
-    print(f"profiled run (float capture): wall {wall:.5f} s, device busy "
+    print(f"profiled {label}: wall {wall:.5f} s, device busy "
           f"{busy:.5f} s ({100.0 * busy / wall:.1f}%), {len(ops)} device "
           f"operations")
     for name, (n, t) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][1])[:10]:
         print(f"  {t / 1e3:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def band_operands(band, f_set):
+    """The first chunk of the band as the band scan stages it: its route
+    (precision, mid-carrier template planes, mid start table) and the
+    quantized [C, 2, n] capture planes the fused kernel reads.  Prints
+    the host seconds of each staging step (one run, synchronised)."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.device import to_capture
+    from lte_cell_scanner_tpu_torch.models.search import SearchConfig
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel.carriers import (
+        _plan_scan_bands, plan_carrier_inputs)
+    dev = torch.device("cuda")
+    caps = [c for c, _, _ in band[:CHUNK]]
+    fcs = [fc for _, fc, _ in band[:CHUNK]]
+    t0 = time.perf_counter()
+    cap, tmpl, starts, _n = plan_carrier_inputs(caps, fcs, f_set, fcs,
+                                                FS_WORK)
+    t1 = time.perf_counter()
+    route = _plan_scan_bands(tmpl, starts, caps, SearchConfig(), dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if route.mid_starts is None:
+        fail("band staging did not pick the fused v4 route")
+    cap_t = to_capture(cap, dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"staging of {len(caps)} carriers ({route.kern.precision}): "
+          f"stack and plans {t1 - t0:.5f} s, route (grid check, operands) "
+          f"{t2 - t1:.5f} s, upload {t3 - t2:.5f} s")
+    if route.kern.precision == "int8":
+        return route, corr_cuda.capture_planes_int8(cap_t)
+    return route, corr_cuda.capture_planes_bf16(cap_t)
+
+
+def fold_bound(precision: str, planes, taps, starts):
+    """(bound_ms, bound_by) of one fused launch: 8 operations per tap,
+    template, fold-output lag, period and carrier (one complex
+    multiply-add is 4 real ones) over the tensor-core peak of the operand
+    type, against the inputs read once and the f32 output written once
+    over HBM bandwidth."""
+    n_c = planes.shape[0]
+    n_t = taps.shape[1]
+    n_comb = starts.shape[1]
+    ops = 8.0 * n_c * n_t * 9600 * n_comb * taps.shape[2]
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in (planes, taps, starts))
+    out_bytes = n_c * n_t * 9600 * 4
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    t_ops = ops / PEAK_OPS[precision]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fold_library_call(planes, taps):
+    """The correlation only (Re and Im of every lag, without |.|^2 and
+    the fold) of the whole [C, 2, n] stack as one cuDNN bf16 conv1d with
+    [2T, 2, 137] weights: the nearest single PyTorch call, a yardstick."""
+    x = planes.to(torch.bfloat16)
+    t = taps.to(torch.bfloat16)
+    w = torch.cat([torch.stack([t[0], -t[1]], dim=1),
+                   torch.stack([t[1], t[0]], dim=1)], dim=0).contiguous()
+    return lambda: torch.nn.functional.conv1d(x, w)
+
+
+def check_fold_kernel(precision: str, route, planes) -> dict:
+    from lte_cell_scanner_tpu_torch.ops import corr_fold_cuda
+    wrapper = corr_fold_cuda.corr_fold_int8 if precision == "int8" \
+        else corr_fold_cuda.corr_fold_bf16
+    plain = corr_fold_cuda.corr_fold_int8_plain if precision == "int8" \
+        else corr_fold_cuda.corr_fold_bf16_plain
+    taps, starts = route.kern.taps, route.mid_starts
+    got = wrapper(planes, taps, starts)
+    torch.cuda.synchronize()
+    ref = plain(planes, taps, starts)
+    shape = (planes.shape[0], taps.shape[1], 9600)
+    if tuple(got.shape) != shape or got.dtype != torch.float32:
+        fail(f"v4 {precision} kernel: shape/dtype {tuple(got.shape)} "
+             f"{got.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"v4 {precision} kernel: non-finite output")
+    err = (got - ref).abs()
+    max_abs_err = float(err.max())
+    ref_max = float(ref.max())
+    print(f"v4 {precision} kernel vs plain at C = {shape[0]}, T = "
+          f"{shape[1]}, n_comb = {starts.shape[1]}: max |err| "
+          f"{max_abs_err:.3e} (map max {ref_max:.3e}), "
+          f"{int((err > 0).sum())} of {got.numel()} entries differ")
+    if precision == "int8":
+        if max_abs_err != 0.0:
+            fail("v4 int8 kernel is not bit-equal to its plain version")
+    elif max_abs_err > 1e-5 * ref_max:
+        fail("v4 bf16 kernel disagrees with its plain version beyond "
+             "1e-5 x max")
+    del got, ref, err
+
+    ms = time_cuda(lambda: wrapper(planes, taps, starts), reps=5, per_rep=2,
+                   warmup=1)
+    plain_ms = time_cuda(lambda: plain(planes, taps, starts), reps=3,
+                         per_rep=1, warmup=1)
+    library_ms = time_cuda(fold_library_call(planes, taps), reps=3,
+                           per_rep=2, warmup=1)
+    bound_ms, bound_by = fold_bound(precision, planes, taps, starts)
+    print(f"v4 {precision} kernel: {ms:.4f} ms per {shape[0]}-carrier "
+          f"launch ({ms / shape[0]:.4f} ms per carrier); plain "
+          f"{plain_ms:.4f} ms; library conv1d (correlation only) "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": f"pss_corr_fold_{precision}", "route": "cuda",
+            "source": FOLD_SOURCE, "replaces": FOLD_REPLACES[precision],
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def expect_band(cell_lists, band, label: str) -> None:
+    from lte_cell_scanner_tpu_torch.sim.scenarios import (
+        BAND_CELL_CARRIERS, TWO_CELL_TRUTH, band_offset)
+    if len(cell_lists) != len(band):
+        fail(f"{label}: {len(cell_lists)} cell lists for {len(band)} "
+             f"carriers")
+    for k, (cells, (_c, fc, _p)) in enumerate(zip(cell_lists, band)):
+        if k not in BAND_CELL_CARRIERS:
+            if cells:
+                fail(f"{label}: cells on the noise carrier {fc / 1e6:.1f} "
+                     f"MHz: {cells}")
+            continue
+        ids = sorted(c.n_id_cell() for c in cells)
+        if ids != sorted(TWO_CELL_TRUTH):
+            fail(f"{label}: {fc / 1e6:.1f} MHz decoded {ids}")
+        for c in cells:
+            truth = TWO_CELL_TRUTH[c.n_id_cell()]
+            if (c.n_rb_dl != 6 or c.n_ports != truth["n_ports"]
+                    or c.sfn not in (truth["sfn"], truth["sfn"] + 1)):
+                fail(f"{label}: wrong MIB for {c}")
+            off = c.freq_superfine - band_offset(fc)
+            print(f"  {fc / 1e6:.1f} MHz cell {c.n_id_cell()}: n_rb "
+                  f"{c.n_rb_dl}, ports {c.n_ports}, SFN {c.sfn}, "
+                  f"freq_superfine - offset {off:+.3f} Hz")
+            if not abs(off) < 50.0:
+                fail(f"{label}: freq_superfine {c.freq_superfine} for "
+                     f"{c}")
+
+
+def run_band_path(label: str, band, f_set, precision: str,
+                  counts: dict) -> None:
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
+    from lte_cell_scanner_tpu_torch.sim.scenarios import BAND_CELL_CARRIERS
+
+    corr_cuda.reset_launch_counts()
+    cell_lists = scan_band(band, f_set, FS_WORK, device="cuda",
+                           max_carriers_per_program=CHUNK)
+    torch.cuda.synchronize()
+    launched = dict(corr_cuda.LAUNCHES)
+    print(f"{label}: launches {launched}")
+    name = f"pss_corr_fold_{precision}"
+    n_chunks = -(-len(band) // CHUNK)
+    if launched[name] != n_chunks:
+        fail(f"{label}: {launched[name]} launches of {name}, expected "
+             f"{n_chunks}")
+    if sum(launched.values()) != launched[name]:
+        fail(f"{label}: the band scan launched another kernel: {launched}")
+    counts[name] = launched[name]
+    expect_band(cell_lists, band, label)
+
+    for k in BAND_CELL_CARRIERS:
+        cap, fc, fcp = band[k]
+        ref = {c.n_id_cell(): c for c in cell_search(
+            cap, f_set, fc, fcp, FS_WORK, device="cuda")}
+        for c in cell_lists[k]:
+            r = ref.get(c.n_id_cell())
+            if r is None or (c.n_id_1, c.cp_type, c.sfn, c.n_ports) != \
+                    (r.n_id_1, r.cp_type, r.sfn, r.n_ports):
+                fail(f"{label}: {fc / 1e6:.1f} MHz cell {c} differs from "
+                     f"the single-carrier search {r}")
+            print(f"  {fc / 1e6:.1f} MHz cell {c.n_id_cell()}: vs "
+                  f"cell_search d(freq_superfine) "
+                  f"{c.freq_superfine - r.freq_superfine:+.4f} Hz, "
+                  f"d(frame_start) {c.frame_start - r.frame_start:+.4f}")
+
+    totals, stages = timed_runs(lambda timings: scan_band(
+        band, f_set, FS_WORK, device="cuda", max_carriers_per_program=CHUNK,
+        timings=timings), 3)
+    total = statistics.median(totals)
+    print(f"{label}: seconds per {len(band)}-carrier band {total:.5f} "
+          f"(median of 3 after a warm-up; "
+          + ", ".join(f"{t:.5f}" for t in totals) + ")")
+    print(f"{label}: carriers_per_s {len(band) / total:.3f}")
+    print(f"{label}: seconds per band by stage (median of 3 more, each "
+          f"stage synchronised): " + ", ".join(
+              f"{k} {v:.5f}" for k, v in stages.items()))
 
 
 def main() -> int:
@@ -302,6 +548,7 @@ def main() -> int:
     from lte_cell_scanner_tpu_torch.models.search import default_f_search_set
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     from lte_cell_scanner_tpu_torch.sim.scenarios import (adc_quantize,
+                                                          band_captures,
                                                           two_cell_capture)
 
     smi = phase_card()
@@ -330,11 +577,36 @@ def main() -> int:
     counts = {}
     run_main_path("float capture", cap_float, f_set, "bf16", counts)
     run_main_path("ADC-grid capture", cap_adc, f_set, "int8", counts)
-    phase_profile(cap_float, f_set)
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+    phase_profile("cell_search (float capture)", lambda: cell_search(
+        cap_float, f_set, FC, FC, FS_WORK, device="cuda"))
+
+    t0 = time.perf_counter()
+    band_float, band_adc = band_captures()
+    print(f"band: {len(band_float)} carriers, "
+          f"{band_float[0][1] / 1e6:.1f}-{band_float[-1][1] / 1e6:.1f} MHz, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    fold_records = {}
+    for precision, band in (("bf16", band_float), ("int8", band_adc)):
+        route, planes = band_operands(band, f_set)
+        if route.kern.precision != precision:
+            fail(f"band staging picked {route.kern.precision} for the "
+                 f"{precision} band")
+        fold_records[precision] = check_fold_kernel(precision, route, planes)
+        del route, planes
+        torch.cuda.empty_cache()
+
+    from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
+    run_band_path("float band", band_float, f_set, "bf16", counts)
+    run_band_path("ADC-grid band", band_adc, f_set, "int8", counts)
+    phase_profile("scan_band (float band)", lambda: scan_band(
+        band_float, f_set, FS_WORK, device="cuda",
+        max_carriers_per_program=CHUNK))
 
     kernels = []
-    for precision in ("bf16", "int8"):
-        rec = records[precision]
+    for rec in (records["bf16"], records["int8"], fold_records["bf16"],
+                fold_records["int8"]):
         rec["launches"] = counts[rec["name"]]
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,8 @@ import time
 from typing import Dict, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCES = {"pss_corr": _PKG / "csrc" / "pss_corr.cu"}
+SOURCES = {"pss_corr": _PKG / "csrc" / "pss_corr.cu",
+           "pss_corr_fold": _PKG / "csrc" / "pss_corr_fold.cu"}
 BUILD_DIR = _PKG / "build"
 
 _loaded: Dict[str, ctypes.CDLL] = {}

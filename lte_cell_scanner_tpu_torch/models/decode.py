@@ -1,16 +1,19 @@
 """Decode back half: extract_tfg -> tfoec -> 4-port hex chan_est -> blind
-MIB candidates for all SSS-accepted peaks of one capture at once.
+MIB candidates for all SSS-accepted peaks of one capture, or of a whole
+band scan, at once.
 
 The reference runs these as four separate stages per detected peak
 (CellSearch.cpp:542-570); here each stage's device half carries a
-leading peak axis, so the whole back half of a capture is one pass per
-CP type (the two CP types have different grid shapes), and one transfer
-brings the residual frequencies and decoded candidate bits to the host.
+leading peak axis, so the whole back half of a capture (or band) is one
+pass per CP type (the two CP types have different grid shapes), and one
+transfer brings the residual frequencies and decoded candidate bits to
+the host.  Each peak reads its own row of a capture stack and carries
+its own carrier frequencies.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,12 +28,13 @@ from .rs import RsDl
 from .tfg import _tfg_impl, _tfg_plan, _tfoec_impl, _tfoec_plan
 
 
-def _decode_impl(capbuf, tfg_args, tfoec_args, ce01, ce23, mib_args, crc_m,
-                 frame_len_sym: int):
-    """The whole decode chain for B peaks of one CP type.  Returns
-    (residual_f [B], c_est [B, 3, 4, 40], crc_calc [B, 3, 4, 16])."""
+def _decode_impl(capbuf, ci, tfg_args, tfoec_args, ce01, ce23, mib_args,
+                 crc_m, frame_len_sym: int):
+    """The whole decode chain for B peaks of one CP type, peak b reading
+    row ci[b] of the capture stack capbuf [C, n].  Returns (residual_f
+    [B], c_est [B, 3, 4, 40], crc_calc [B, 3, 4, 16])."""
     locs_i, late, freq_fine, fs_true, ts = tfg_args
-    tfg = _tfg_impl(capbuf, locs_i, late, freq_fine, fs_true)
+    tfg = _tfg_impl(capbuf, ci, locs_i, late, freq_fine, fs_true)
     residual_f, tfg_comp, _ts2 = _tfoec_impl(tfg, ts, *tfoec_args)
     c_all, crc_all = _ce_mib_impl(tfg_comp, ce01, ce23, mib_args, crc_m,
                                   frame_len_sym)
@@ -116,19 +120,23 @@ def _ce_mib_args(plans, device: torch.device, rdt: torch.dtype):
     return ce[0], ce[1], mib_args, crc_m
 
 
-def _run_group(cells: Sequence[Cell], capbuf: torch.Tensor,
-               fc_requested: float, fc_programmed: float,
+def _run_group(cells: Sequence[Cell], fcs: Sequence[Tuple[float, float]],
+               capbuf: torch.Tensor, carrier_idx: Sequence[int],
                fs_programmed: float) -> List[Cell]:
-    """Decode a same-CP-type group of peaks as one batched pass."""
+    """Decode a same-CP-type group of peaks as one batched pass: peak i
+    reads row carrier_idx[i] of the capture stack capbuf [C, n] and
+    plans at its (fc_requested, fc_programmed) = fcs[i]."""
     dev = capbuf.device
     rdt = real_dtype(dev)
-    n_cap = int(capbuf.shape[0])
-    plans = [_cell_plans(c, n_cap, fc_requested, fc_programmed,
-                         fs_programmed) for c in cells]
+    n_cap = int(capbuf.shape[-1])
+    plans = [_cell_plans(c, n_cap, fcr, fcp, fs_programmed)
+             for c, (fcr, fcp) in zip(cells, fcs)]
     tfg_args = _stack([p[0] for p in plans], dev, rdt)
     tfoec_args = _stack([p[1] for p in plans], dev, rdt)
     residual_f, c_all, crc_all = _decode_impl(
-        capbuf, tfg_args, tfoec_args,
+        capbuf, torch.as_tensor(list(carrier_idx), dtype=torch.int64,
+                                device=dev),
+        tfg_args, tfoec_args,
         *_ce_mib_args([p[2:] for p in plans], dev, rdt),
         10 * 2 * cells[0].n_symb_dl())
     residual_f = residual_f.cpu().numpy()
@@ -141,22 +149,44 @@ def _run_group(cells: Sequence[Cell], capbuf: torch.Tensor,
     return out
 
 
+def _decode_grouped(cells: Sequence[Cell], fcs: Sequence[Tuple[float, float]],
+                    capbuf: torch.Tensor, carrier_idx: Sequence[int],
+                    fs_programmed: float) -> List[Cell]:
+    """Run each CP type's peaks as one group; cells in input order."""
+    groups: Dict[object, List[int]] = {}
+    for i, c in enumerate(cells):
+        groups.setdefault(c.cp_type, []).append(i)
+    out: List[Optional[Cell]] = [None] * len(cells)
+    for members in groups.values():
+        decoded = _run_group([cells[i] for i in members],
+                             [fcs[i] for i in members], capbuf,
+                             [carrier_idx[i] for i in members],
+                             fs_programmed)
+        for i, c in zip(members, decoded):
+            out[i] = c
+    return out  # type: ignore[return-value]
+
+
 def decode_back_half_batch(cells: Sequence[Cell], capbuf: torch.Tensor,
                            fc_requested: float, fc_programmed: float,
                            fs_programmed: float) -> List[Cell]:
     """Decode every SSS-accepted peak of one capture, grouped by CP type.
     Returns the cells in input order with freq_superfine set, and the MIB
     fields set where one of the 12 blind candidates passed its CRC."""
-    groups: Dict[object, List[int]] = {}
-    for i, c in enumerate(cells):
-        groups.setdefault(c.cp_type, []).append(i)
-    out: List[Optional[Cell]] = [None] * len(cells)
-    for members in groups.values():
-        decoded = _run_group([cells[i] for i in members], capbuf,
-                             fc_requested, fc_programmed, fs_programmed)
-        for i, c in zip(members, decoded):
-            out[i] = c
-    return out  # type: ignore[return-value]
+    return _decode_grouped(cells, [(fc_requested, fc_programmed)] * len(cells),
+                           capbuf[None], [0] * len(cells), fs_programmed)
+
+
+def decode_back_half_batch_multi(cells: Sequence[Cell],
+                                 capbufs: torch.Tensor,
+                                 carrier_idx: Sequence[int],
+                                 fs_programmed: float) -> List[Cell]:
+    """Band-scan variant: peak i reads row carrier_idx[i] of the capture
+    stack capbufs [C, n] and decodes at its own fc_requested /
+    fc_programmed."""
+    return _decode_grouped(cells, [(c.fc_requested, c.fc_programmed)
+                                   for c in cells],
+                           capbufs, carrier_idx, fs_programmed)
 
 
 def decode_mib(cell: Cell, tfg_comp: torch.Tensor) -> Cell:

@@ -100,50 +100,56 @@ def peak_search(xc_incoherent_collapsed_pow: np.ndarray,
 def peak_search_device(pow_c: torch.Tensor, frq_c: torch.Tensor,
                        slab: torch.Tensor, z_th1: torch.Tensor,
                        ds_comb_arm: int, cap: int = PEAK_CAP):
-    """The greedy loop on device tensors: pow_c/frq_c [3, 9600], slab
-    [3, 2*arm+1, 9600], z_th1 [9600].  Returns (recs [cap, 4], n) with
-    rec = (pss_pow, refined_ind, frq_index, n_id_2); rows >= n are
+    """The greedy loop on device tensors for C carriers at once: pow_c /
+    frq_c [C, 3, 9600], slab [C, 3, 2*arm+1, 9600], z_th1 [C, 9600] (a
+    single carrier passes C = 1).  Returns (recs [C, cap, 4], n [C]) with
+    rec = (pss_pow, refined_ind, frq_index, n_id_2); rows >= n[c] are
     padding.
 
-    Runs ``cap`` masked iterations (the loop stops contributing once a
-    peak falls below threshold), so nothing waits for the host.  Ties
-    resolve to the first maximum, as in the host scan order.  The 12 dB
-    floor makes real captures end in <= ~25 iterations; peaks beyond the
-    cap would anyway be within 12 dB of the weakest accepted one, and a
-    caller that sees n == cap reruns the unbounded host loop."""
-    half = pow_c.shape[1]
+    Runs ``cap`` masked iterations in all, whatever C (a carrier's loop
+    stops contributing once its peak falls below threshold), so nothing
+    waits for the host.  Ties resolve to the first maximum, as in the
+    host scan order.  The 12 dB floor makes real captures end in <= ~25
+    iterations; peaks beyond the cap would anyway be within 12 dB of the
+    weakest accepted one, and a caller that sees n == cap reruns the
+    unbounded host loop."""
+    n_c, _, half = pow_c.shape
     dev = pow_c.device
     rdt = pow_c.dtype
+    ci = torch.arange(n_c, device=dev)
     lags = torch.arange(half, device=dev)
-    rows = torch.arange(3, device=dev)[:, None]
-    slots = torch.arange(cap, device=dev)[:, None]
+    rows = torch.arange(3, device=dev)[None, :, None]
+    slots = torch.arange(cap, device=dev)[None, :, None]
     th8 = 10.0 ** (-0.8)
     th12 = 10.0 ** (-1.2)
+    zero = torch.zeros((), dtype=rdt, device=dev)
 
     work = pow_c.clone()
-    recs = torch.zeros((cap, 4), dtype=rdt, device=dev)
-    k = torch.zeros((), dtype=torch.int64, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
+    recs = torch.zeros((n_c, cap, 4), dtype=rdt, device=dev)
+    k = torch.zeros(n_c, dtype=torch.int64, device=dev)
+    active = torch.ones(n_c, dtype=torch.bool, device=dev)
     for _ in range(cap):
-        i = torch.argmax(work.reshape(-1))
+        i = torch.argmax(work.reshape(n_c, -1), dim=1)
         t = torch.div(i, half, rounding_mode="floor")
         lag = i - t * half
-        p = work[t, lag]
-        ok = active & (p >= z_th1[lag])
+        p = work[ci, t, lag]
+        ok = active & (p >= z_th1[ci, lag])
 
-        d = torch.argmax(slab[t, :, lag])
+        d = torch.argmax(slab[ci, t, :, lag], dim=1)
         best_ind = (lag - ds_comb_arm + d) % half
-        rec = torch.stack([p, best_ind.to(rdt), frq_c[t, lag].to(rdt),
-                           t.to(rdt)])
-        recs = torch.where((slots == k) & ok, rec[None, :], recs)
+        rec = torch.stack([p, best_ind.to(rdt), frq_c[ci, t, lag].to(rdt),
+                           t.to(rdt)], dim=1)
+        hit = (slots == k[:, None, None]) & ok[:, None, None]
+        recs = torch.where(hit, rec[:, None, :], recs)
 
-        dist = torch.abs(((lags - lag + half // 2) % half) - half // 2)
-        win = (dist <= _SAME_PSS_CANCEL)[None, :]
-        same = rows == t
-        cancel = (same & win) | (~same & win & (work < p * th8)) \
-            | (work < p * th12)
-        work = torch.where(ok & cancel, torch.zeros((), dtype=rdt,
-                                                    device=dev), work)
+        dist = torch.abs(((lags - lag[:, None] + half // 2) % half)
+                         - half // 2)
+        win = (dist <= _SAME_PSS_CANCEL)[:, None, :]
+        same = rows == t[:, None, None]
+        pk = p[:, None, None]
+        cancel = (same & win) | (~same & win & (work < pk * th8)) \
+            | (work < pk * th12)
+        work = torch.where(ok[:, None, None] & cancel, zero, work)
         k = k + ok.to(k.dtype)
         active = ok & (k < cap)
     return recs, k

@@ -8,6 +8,7 @@ extract_tfg -> tfoec -> decode_mib} -> dedup.
 
 from __future__ import annotations
 
+import logging
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -25,6 +26,8 @@ from .decode import decode_back_half_batch
 from .peaks import PEAK_CAP, cells_from_peak_records, peak_search
 from .sss_detect import sss_foe_batch_fused
 from .xcorr import xcorr_pss, xcorr_pss_peaks
+
+log = logging.getLogger(__name__)
 
 
 def compute_z_th1(sp_incoherent: np.ndarray, n_comb_xc: int,
@@ -86,8 +89,8 @@ def refine_peaks(peaks: List[Cell], cap_t: torch.Tensor,
     type (reference CellSearch.cpp:514-570)."""
     dev = cap_t.device
     with _stage(timings, "sss_foe", dev):
-        cells = sss_foe_batch_fused(peaks, cap_t, cfg.thresh2_n_sigma,
-                                    fs_programmed)
+        cells = sss_foe_batch_fused(peaks, cap_t[None], [0] * len(peaks),
+                                    cfg.thresh2_n_sigma, fs_programmed)
     cells = [c for c in cells if c.n_id_1 >= 0]
     if not cfg.decode or not cells:
         return cells
@@ -130,6 +133,8 @@ def cell_search(capbuf, f_search_set, fc_requested: float,
         # saturated record buffer (>= PEAK_CAP extractions): the host
         # peak search is unbounded -- fall through to it rather than
         # truncating a dense capture's peak list
+        log.warning("cell search: %d peak records filled; host peak "
+                    "search", PEAK_CAP)
 
     with _stage(timings, "front_end", dev):
         res = xcorr_pss(capbuf, f_search_set, cfg.ds_comb_arm,

@@ -8,7 +8,10 @@ frequency conversions run at the true sample rate fs_programmed*k_factor
 
 All per-peak device work carries an explicit leading peak axis B, and the
 n_pss 5 ms-spaced PSS/SSS positions of a peak a second axis R (padded to
-a capture-length-only capacity; padded rows carry weight 0).
+a capture-length-only capacity; padded rows carry weight 0).  Device
+functions read a capture stack [C, n_cap] through per-peak carrier
+indices ci [B]: a band scan's peaks of all carriers in one pass, one
+carrier's peaks with C = 1.
 Fractional-timing planning (k_factor strides, rounding) stays in float64
 host scalars exactly as the reference's double math does; the host makes
 the authoritative accept decision in float64 from the device's
@@ -17,6 +20,7 @@ log-likelihood tables.
 
 from __future__ import annotations
 
+import logging
 import math
 from functools import lru_cache
 from typing import List, Sequence, Tuple
@@ -32,15 +36,19 @@ from .pss import PSS_FD
 from .sss import SSS_FD
 from .xcorr import round_i
 
+log = logging.getLogger(__name__)
 
-def _dft_segments_idx(capbuf: torch.Tensor, idx: torch.Tensor, foc_freq,
-                      fs_mix, n_sc: int = 62) -> torch.Tensor:
+
+def _dft_segments_idx(capbuf: torch.Tensor, ci: torch.Tensor,
+                      idx: torch.Tensor, foc_freq, fs_mix,
+                      n_sc: int = 62) -> torch.Tensor:
     """Batched extract_psss (reference searcher.cpp:516-530): for window
-    starts idx [B, R, 128] take the samples, apply the per-peak mixer
+    starts idx [B, R, 128] take the samples of capture row ci[b] of the
+    stack capbuf [C, n_cap], apply the per-peak mixer
     exp(j*2*pi*foc_freq[b]*t/fs_mix[b]) (phase 0 at each segment start),
     rotate out the 2-sample timing margin, unitary 128-pt DFT, and return
     the n_sc center subcarriers -> [B, R, n_sc]."""
-    segs = capbuf[idx]
+    segs = capbuf[ci[:, None, None], idx]
     ramp = fshift_ramp(128, foc_freq, fs_mix, capbuf.dtype, capbuf.device)
     segs = segs * ramp[:, None, :]
     segs = torch.roll(segs, -2, dims=-1)
@@ -119,20 +127,20 @@ def _getce_prepare(cell: Cell, n_cap: int, fc_requested: float,
     return locs, mask, peak_freq, fs_mix
 
 
-def _getce_impl(capbuf, idx_pss, idx_ext, idx_nrm, mask, freq, fs_mix,
+def _getce_impl(capbuf, ci, idx_pss, idx_ext, idx_nrm, mask, freq, fs_mix,
                 pss_fd_conj):
     """PSS channel estimates, 13-tap smoothing, noise power, SSS
     extraction at both CP offsets, and the inverse-noise MMSE combine into
     h1 (even half-frames) / h2 (odd) (reference searcher.cpp:600-631).
     idx_*: [B, R, 128]; mask [B, R]; freq/fs_mix [B]; pss_fd_conj
     [B, 62].  Rows where mask is False contribute exact zeros."""
-    h_raw = _dft_segments_idx(capbuf, idx_pss, -freq, fs_mix) \
+    h_raw = _dft_segments_idx(capbuf, ci, idx_pss, -freq, fs_mix) \
         * pss_fd_conj[:, None, :]
     h_sm = _smooth13(h_raw)
     resid = h_sm - h_raw
     pss_np = torch.mean(resid.real ** 2 + resid.imag ** 2, dim=-1)
-    sss_ext_raw = _dft_segments_idx(capbuf, idx_ext, -freq, fs_mix)
-    sss_nrm_raw = _dft_segments_idx(capbuf, idx_nrm, -freq, fs_mix)
+    sss_ext_raw = _dft_segments_idx(capbuf, ci, idx_ext, -freq, fs_mix)
+    sss_nrm_raw = _dft_segments_idx(capbuf, ci, idx_nrm, -freq, fs_mix)
     zero = torch.zeros((), dtype=pss_np.dtype, device=pss_np.device)
 
     def combine(h, npv, m, nrm_raw, ext_raw):
@@ -201,14 +209,15 @@ class _Roms:
         self.sss = tensor(SSS_FD().astype(np.float64), device)  # [168,3,2,62]
 
 
-def _detect_impl(capbuf, locs, mask, freq, fs_mix, n_id_2, roms: _Roms):
+def _detect_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2,
+                 roms: _Roms):
     """Channel/SSS estimation plus the 168 x 2 x 2 ML table for a batch of
     peaks.  locs [B, R] are the PSS DFT window starts; the three
     [B, R, 128] gather maps (PSS window, extended-CP SSS at -160,
     normal-CP SSS at -137) are expanded on the device."""
     base = torch.arange(128, device=locs.device)
     lc = locs[..., None]
-    ests = _getce_impl(capbuf, lc + base, lc - (128 + 32) + base,
+    ests = _getce_impl(capbuf, ci, lc + base, lc - (128 + 32) + base,
                        lc - (128 + 9) + base, mask, freq, fs_mix,
                        roms.pss_conj[n_id_2])
     lln, lle = _ml_impl(*ests, roms.try12[n_id_2], roms.try21[n_id_2])
@@ -299,8 +308,8 @@ def _foe_prepare(cell: Cell, n_cap: int, fc_requested: float,
             fs_out)
 
 
-def _foe_impl(capbuf, locs, mask, pss_sss_dist, freq, fs_mix, seg_phase,
-              sn_pad, n_id_1, n_id_2, roms: _Roms):
+def _foe_impl(capbuf, ci, locs, mask, pss_sss_dist, freq, fs_mix,
+              seg_phase, sn_pad, n_id_1, n_id_2, roms: _Roms):
     """Device half of pss_sss_foe for a batch of peaks: PSS channel
     estimates + smoothing, SSS extraction/derotation, and the weighted
     conj(SSS)*H_pss accumulation (reference searcher.cpp:816-848).
@@ -311,12 +320,12 @@ def _foe_impl(capbuf, locs, mask, pss_sss_dist, freq, fs_mix, seg_phase,
     idx_sss = locs[..., None] + base
     pss_fd_conj = roms.pss_conj[n_id_2]                       # [B, 62]
     sss_expect = roms.sss[n_id_1[:, None], n_id_2[:, None], sn_pad]
-    h_raw = _dft_segments_idx(capbuf, idx_pss, -freq, fs_mix) \
+    h_raw = _dft_segments_idx(capbuf, ci, idx_pss, -freq, fs_mix) \
         * pss_fd_conj[:, None, :]
     h_sm = _smooth13(h_raw)
     resid = h_sm - h_raw
     pss_np = torch.mean(resid.real ** 2 + resid.imag ** 2, dim=-1)
-    sss_raw = _dft_segments_idx(capbuf, idx_sss, -freq, fs_mix)
+    sss_raw = _dft_segments_idx(capbuf, ci, idx_sss, -freq, fs_mix)
     sss_raw = sss_raw * seg_phase[:, None, None] * sss_expect
     h2 = h_sm.real ** 2 + h_sm.imag ** 2
     w = h2 / (2 * h2 * pss_np[..., None] + (pss_np ** 2)[..., None])
@@ -335,7 +344,8 @@ def pss_sss_foe(cell: Cell, capbuf: torch.Tensor, fc_requested: float,
      fs_out) = _foe_prepare(cell, n_cap, fc_requested, fc_programmed,
                             fs_programmed)
     M = _foe_impl(
-        capbuf, torch.from_numpy(locs[None]).to(dev),
+        capbuf[None], torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.from_numpy(locs[None]).to(dev),
         torch.from_numpy(mask[None]).to(dev),
         torch.tensor([pss_sss_dist], device=dev),
         tensor([freq], dev), tensor([fs_mix], dev),
@@ -365,14 +375,14 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
 
 
-def _detect_foe_impl(capbuf, locs, mask, freq, fs_mix, n_id_2, ind,
+def _detect_foe_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2, ind,
                      k_factor, s_scale, roms: _Roms):
     """Fused sss_detect + pss_sss_foe for a batch of peaks.  Per-peak
     inputs [B]: ind (coarse peak location), k_factor, s_scale (the
     searcher.cpp:735 timescale factor).  Returns (lln, lle, M, n_id_1,
     use_norm, late, dist, n_loc)."""
-    n_cap = capbuf.shape[0]
-    ests = _detect_impl(capbuf, locs, mask, freq, fs_mix, n_id_2, roms)
+    n_cap = capbuf.shape[-1]
+    ests = _detect_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2, roms)
     lln, lle = ests[6], ests[7]                                 # [B, 168, 2]
 
     # --- _decide_sss core (searcher.cpp:695-761) ---------------------------
@@ -415,7 +425,7 @@ def _detect_foe_impl(capbuf, locs, mask, freq, fs_mix, n_id_2, ind,
     seg_phase = torch.complex(torch.cos(phase), torch.sin(phase)) \
         .to(capbuf.dtype)
     dist_i = dist.to(locs.dtype)
-    M = _foe_impl(capbuf, foe_locs, foe_mask, dist_i, freq, fs_mix,
+    M = _foe_impl(capbuf, ci, foe_locs, foe_mask, dist_i, freq, fs_mix,
                   seg_phase, sn, n_id_1, n_id_2, roms)
     return (lln, lle, M, n_id_1, use_norm, late, dist_i,
             foe_mask.sum(dim=1))
@@ -428,18 +438,20 @@ def _sss_foe_scalars(cell: Cell, fc_requested: float, fc_programmed: float,
     return k_factor, s, fs_programmed * k_factor
 
 
-def sss_foe_batch_fused(cells: Sequence[Cell], capbuf: torch.Tensor,
-                        thresh2_n_sigma: float,
+def sss_foe_batch_fused(cells: Sequence[Cell], capbuf_stack: torch.Tensor,
+                        carrier_idx: Sequence[int], thresh2_n_sigma: float,
                         fs_programmed: float) -> List[Cell]:
     """SSS detection AND fine FOE for a whole peak list in one device
-    pass.  Peaks the SSS gate rejects come back with n_id_1 = -1;
+    pass, each peak reading row carrier_idx[i] of the capture stack
+    capbuf_stack [C, n_cap] (a single capture passes capbuf[None] and
+    zeros).  Peaks the SSS gate rejects come back with n_id_1 = -1;
     accepted peaks carry freq_fine.  Each Cell carries its own
     fc_requested / fc_programmed (filled by the peak search)."""
     if not cells:
         return []
-    dev = capbuf.device
+    dev = capbuf_stack.device
     rdt = real_dtype(dev)
-    n_cap = int(capbuf.shape[-1])
+    n_cap = int(capbuf_stack.shape[-1])
     preps = [_getce_prepare(c, n_cap, c.fc_requested, c.fc_programmed,
                             fs_programmed) for c in cells]
     rows = max(len(p[0]) for p in preps)
@@ -451,7 +463,7 @@ def sss_foe_batch_fused(cells: Sequence[Cell], capbuf: torch.Tensor,
         return torch.from_numpy(np.asarray(vals)).to(device=dev, dtype=dtype)
 
     out = _detect_foe_impl(
-        capbuf,
+        capbuf_stack, host(carrier_idx, torch.int64),
         host(np.stack([pl for pl, _ in padded]), torch.int64),
         host(np.stack([pm for _, pm in padded]), torch.bool),
         host([p[2] for p in preps]), host([p[3] for p in preps]),
@@ -488,6 +500,11 @@ def sss_foe_batch_fused(cells: Sequence[Cell], capbuf: torch.Tensor,
                 / (2 * np.pi) * fs_out / h_dist
             result.append(cell.evolve(freq_fine=float(freq_fine)))
         else:
-            result.append(pss_sss_foe(cell, capbuf, fcr, fcp,
-                                      fs_programmed))
+            # the f32 device plan rounded differently: this peak's FOE
+            # runs again staged, from the host's float64 plan
+            log.warning("SSS/FOE: device plan disagrees with the float64 "
+                        "host plan for cell %d at %d; staged FOE re-run",
+                        cell.n_id_cell(), cell.ind)
+            result.append(pss_sss_foe(cell, capbuf_stack[carrier_idx[i]],
+                                      fcr, fcp, fs_programmed))
     return result

@@ -65,15 +65,17 @@ def plan_dft_locations(cell: Cell, fc_requested: float, fc_programmed: float,
     return locs
 
 
-def _tfg_impl(capbuf: torch.Tensor, locs_i: torch.Tensor, late: torch.Tensor,
-              freq_fine: torch.Tensor, fs_true: torch.Tensor) -> torch.Tensor:
+def _tfg_impl(capbuf: torch.Tensor, ci: torch.Tensor, locs_i: torch.Tensor,
+              late: torch.Tensor, freq_fine: torch.Tensor,
+              fs_true: torch.Tensor) -> torch.Tensor:
     """Device half of extract_tfg for B peaks: full-capture FOC mixer
     (searcher.cpp:892), windowed gather, batched 128-pt DFTs, and the
     per-symbol fractional-timing phase ramp (searcher.cpp:922-931).
+    capbuf [C, n] is a capture stack and ci [B] each peak's row;
     locs_i/late [B, n_ofdm]; freq_fine/fs_true [B] -> tfg [B, n_ofdm, 72]."""
     dtype = capbuf.dtype
-    foc = capbuf * fshift_ramp(capbuf.shape[0], -freq_fine, fs_true, dtype,
-                               capbuf.device)                  # [B, n]
+    foc = capbuf[ci] * fshift_ramp(capbuf.shape[-1], -freq_fine, fs_true,
+                                   dtype, capbuf.device)       # [B, n]
     idx = locs_i[..., None] + torch.arange(128, device=locs_i.device)
     segs = torch.gather(foc, 1, idx.reshape(idx.shape[0], -1)) \
         .reshape(idx.shape)                                    # [B, n_ofdm, 128]
@@ -206,7 +208,9 @@ def extract_tfg(cell: Cell, capbuf: torch.Tensor, fc_requested: float,
     locs_i, late, locs, fs_true = _tfg_plan(cell, int(capbuf.shape[0]),
                                             fc_requested, fc_programmed,
                                             fs_programmed)
-    tfg = _tfg_impl(capbuf, torch.from_numpy(locs_i[None]).to(dev),
+    tfg = _tfg_impl(capbuf[None], torch.zeros(1, dtype=torch.int64,
+                                              device=dev),
+                    torch.from_numpy(locs_i[None]).to(dev),
                     torch.from_numpy(late[None]).to(dev, rdt),
                     torch.tensor([cell.freq_fine], dtype=rdt, device=dev),
                     torch.tensor([fs_true], dtype=rdt, device=dev))

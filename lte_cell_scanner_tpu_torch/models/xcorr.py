@@ -89,15 +89,17 @@ def use_kernel_corr(corr_backend: str, device: torch.device) -> bool:
     raise ValueError(f"unknown corr_backend {corr_backend!r}")
 
 
-def _corr_stage(capbuf: torch.Tensor, templates: torch.Tensor,
+def _corr_stage(capbuf: torch.Tensor, templates: Optional[torch.Tensor],
                 keep_xc: bool, kern: Optional[KernelOperands]):
     """Correlation-power part of the front end -> (xc2 [3, n_f, n_lags],
     xc or None, power scale or None).  With kernel operands the map comes
     back bf16 (the fold accumulates it in the working float type); the
-    int8 map is UNSCALED and the scale is applied after the fold."""
-    n_f = templates.shape[1]
+    int8 map is UNSCALED and the scale is applied after the fold.  The
+    kernels read kern.taps; templates [3, n_f, 137] serve the exact route
+    only (None on the kernel route)."""
     n_lags = capbuf.shape[0] - (PSS_TD_LEN - 1)
     if kern is not None:
+        n_f = kern.taps.shape[1] // 3
         if keep_xc:
             raise ValueError("the correlation kernels cannot return the "
                              "complex correlation (keep_xc=True)")
@@ -108,18 +110,19 @@ def _corr_stage(capbuf: torch.Tensor, templates: torch.Tensor,
             xc2 = corr_cuda.corr_pow_bf16(
                 corr_cuda.capture_planes_bf16(capbuf), kern.taps, n_lags)
         return xc2.reshape(3, n_f, n_lags), None, kern.power_scale
+    n_f = templates.shape[1]
     xc = correlate(capbuf, templates.reshape(3 * n_f, PSS_TD_LEN))
     xc = xc.reshape(3, n_f, n_lags)
     return xc.real ** 2 + xc.imag ** 2, xc, None
 
 
-def _back_stage(xc2: torch.Tensor, capbuf: torch.Tensor,
-                start_idx: torch.Tensor, ds_comb_arm: int, lean: bool,
-                pw_scale: Optional[float] = None):
-    """Fold + delay-spread + collapse + sp_est (+ lean refinement slab)
-    off a materialized power map.  pw_scale (int8 route) multiplies the
-    FOLDED map, restoring capture-unit powers."""
-    rdt = capbuf.real.dtype
+def _fold_stage(xc2: torch.Tensor, start_idx: torch.Tensor,
+                rdt: torch.dtype, pw_scale: Optional[float] = None
+                ) -> torch.Tensor:
+    """The k_factor half-frame fold of one carrier's materialized power
+    map at its exact start indices -> xc_single [3, n_f, 9600] in rdt.
+    pw_scale (int8 route) multiplies the FOLDED map, restoring
+    capture-unit powers."""
     n_f, n_comb_xc = start_idx.shape
     base = torch.arange(HALF_FRAME_LEN, device=xc2.device)
     acc = torch.zeros((3, n_f, HALF_FRAME_LEN), dtype=rdt,
@@ -131,16 +134,19 @@ def _back_stage(xc2: torch.Tensor, capbuf: torch.Tensor,
     if pw_scale is not None:
         xc_single = xc_single * torch.tensor(np.float32(pw_scale), dtype=rdt,
                                              device=xc2.device)
-    return _post_fold_stage(xc_single, capbuf, ds_comb_arm, lean)
+    return xc_single
 
 
 def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
                      ds_comb_arm: int, lean: bool):
     """Delay-spread combining, hypothesis collapse, sp_est, and the lean
-    refinement slab.  Returns (xc_single, xc_inc, pow, frq, sp, sp_inc,
-    slab) with None in the slots lean mode drops."""
+    refinement slab for C carriers: xc_single [C, 3, n_f, 9600], capbuf
+    [C, n_cap] (a single carrier passes C = 1).  Returns (xc_single,
+    xc_inc, pow [C, 3, 9600], frq, sp [C, n_sp], sp_inc [C, 9600], slab
+    [C, 3, 2*arm+1, 9600]) with None in the slots lean mode drops."""
     rdt = capbuf.real.dtype
     dev = capbuf.device
+    n_c = capbuf.shape[0]
 
     # --- xc_delay_spread: cyclic +-arm moving average ----------------------
     xc_inc = xc_single
@@ -150,40 +156,41 @@ def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
     xc_inc = xc_inc / (2 * ds_comb_arm + 1)
 
     # --- xc_peak_freq: collapse the frequency axis (first max wins) ------
-    frq_collapsed = torch.argmax(xc_inc, dim=1)             # [3, 9600]
-    pow_collapsed = torch.gather(xc_inc, 1, frq_collapsed[:, None, :])[:, 0]
+    frq_collapsed = torch.argmax(xc_inc, dim=2)             # [C, 3, 9600]
+    pow_collapsed = torch.gather(xc_inc, 2,
+                                 frq_collapsed[:, :, None, :])[:, :, 0]
 
     # --- sp_est: 274-sample mean power, folded, shifted by 137 -------------
-    n_cap = capbuf.shape[0]
+    n_cap = capbuf.shape[1]
     n_comb_sp = (n_cap - 136 - 137) // HALF_FRAME_LEN
     n_sp = n_comb_sp * HALF_FRAME_LEN
     p = capbuf.real ** 2 + capbuf.imag ** 2
-    zero = torch.zeros(1, dtype=rdt, device=dev)
+    zero = torch.zeros((n_c, 1), dtype=rdt, device=dev)
     if lean:
         # fold-then-window: mean_m window_274(p)[k + m*9600] equals
         # window_274(sum_m p[m*9600:...])[k] / n_comb
-        q = torch.zeros(HALF_FRAME_LEN + 273, dtype=rdt, device=dev)
+        q = torch.zeros((n_c, HALF_FRAME_LEN + 273), dtype=rdt, device=dev)
         for m in range(n_comb_sp):
-            q = q + p[m * HALF_FRAME_LEN: m * HALF_FRAME_LEN
+            q = q + p[:, m * HALF_FRAME_LEN: m * HALF_FRAME_LEN
                       + HALF_FRAME_LEN + 273]
-        cq = torch.cat([zero, torch.cumsum(q, 0)])
-        sp_incoherent = (cq[274: 274 + HALF_FRAME_LEN]
-                         - cq[:HALF_FRAME_LEN]) / (274.0 * n_comb_sp)
+        cq = torch.cat([zero, torch.cumsum(q, 1)], dim=1)
+        sp_incoherent = (cq[:, 274: 274 + HALF_FRAME_LEN]
+                         - cq[:, :HALF_FRAME_LEN]) / (274.0 * n_comb_sp)
         sp = None
     else:
-        cs = torch.cat([zero, torch.cumsum(p, 0)])
-        sp = (cs[274: 274 + n_sp] - cs[:n_sp]) / 274.0
-        sp_incoherent = torch.mean(sp.reshape(n_comb_sp, HALF_FRAME_LEN),
-                                   dim=0)
-    sp_incoherent = torch.roll(sp_incoherent, 137)
+        cs = torch.cat([zero, torch.cumsum(p, 1)], dim=1)
+        sp = (cs[:, 274: 274 + n_sp] - cs[:, :n_sp]) / 274.0
+        sp_incoherent = torch.mean(
+            sp.reshape(n_c, n_comb_sp, HALF_FRAME_LEN), dim=1)
+    sp_incoherent = torch.roll(sp_incoherent, 137, dims=-1)
 
     refine_slab = None
     if lean:
-        # slab[t, d, l] = xc_single[t, frq[t, l], (l - arm + d) % 9600]
+        # slab[c, t, d, l] = xc_single[c, t, frq[c, t, l], (l - arm + d) % 9600]
         rows = [torch.gather(torch.roll(xc_single, ds_comb_arm - d, dims=-1),
-                             1, frq_collapsed[:, None, :])[:, 0]
+                             2, frq_collapsed[:, :, None, :])[:, :, 0]
                 for d in range(2 * ds_comb_arm + 1)]
-        refine_slab = torch.stack(rows, dim=1)              # [3, 2a+1, 9600]
+        refine_slab = torch.stack(rows, dim=2)          # [C, 3, 2a+1, 9600]
     return (None if lean else xc_single, None if lean else xc_inc,
             pow_collapsed, frq_collapsed, sp, sp_incoherent, refine_slab)
 
@@ -254,15 +261,16 @@ def xcorr_pss_peaks(capbuf, f_search_set, ds_comb_arm: int,
         capbuf, f_search_set, fc_requested, fc_programmed, fs_programmed,
         corr_backend, device, cap_t, want_kernel=True)
     xc2, _xc, pw_scale = _corr_stage(cap_t, templates, False, kern)
-    (_s, _i, pow_c, frq_c, _sp, sp_inc, slab) = _back_stage(
-        xc2, cap_t, start_idx, ds_comb_arm, True, pw_scale)
+    xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
+    (_s, _i, pow_c, frq_c, _sp, sp_inc, slab) = _post_fold_stage(
+        xc_single[None], cap_t[None], ds_comb_arm, True)
     # the chi-squared threshold scale: compute_z_th1 with a unit
     # sp_incoherent (one definition of the detection constant)
     z_scale = float(compute_z_th1(np.float64(1.0), n_comb_xc, ds_comb_arm,
                                   thresh1_n_nines))
     recs, n = peak_search_device(pow_c, frq_c, slab, sp_inc * z_scale,
                                  ds_comb_arm)
-    return recs.cpu().numpy(), int(n.item()), n_comb_xc
+    return recs[0].cpu().numpy(), int(n[0].item()), n_comb_xc
 
 
 def xcorr_pss(capbuf, f_search_set, ds_comb_arm: int, fc_requested: float,
@@ -283,9 +291,10 @@ def xcorr_pss(capbuf, f_search_set, ds_comb_arm: int, fc_requested: float,
         capbuf, f_search_set, fc_requested, fc_programmed, fs_programmed,
         corr_backend, device, cap_t, want_kernel=not keep_xc)
     xc2, xc, pw_scale = _corr_stage(cap_t, templates, keep_xc, kern)
-    outs = _back_stage(xc2, cap_t, start_idx, ds_comb_arm, lean, pw_scale)
+    xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
+    outs = _post_fold_stage(xc_single[None], cap_t[None], ds_comb_arm, lean)
     (xc_single, xc_inc, pow_c, frq_c, sp, sp_inc, slab) = [
-        None if o is None else o.cpu().numpy() for o in outs]
+        None if o is None else o[0].cpu().numpy() for o in outs]
     n_comb_sp = (cap_t.shape[0] - 136 - 137) // HALF_FRAME_LEN
     return XcorrResult(
         xc_incoherent_single=xc_single,

@@ -15,7 +15,8 @@ cap[l + m]|^2 as a bf16 [T, n_lags] map.
 
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
 error) and takes the plain version only for CPU tensors.  ``LAUNCHES``
-counts kernel launches per wrapper.
+counts kernel launches per wrapper, for these two kernels and the fused
+correlation-plus-fold kernels of ``ops/corr_fold_cuda.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 
 from ..constants import PSS_TD_LEN
 
-LAUNCHES = {"pss_corr_bf16": 0, "pss_corr_int8": 0}
+LAUNCHES = {"pss_corr_bf16": 0, "pss_corr_int8": 0,
+            "pss_corr_fold_bf16": 0, "pss_corr_fold_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,15 +87,17 @@ def template_planes_int8(templates, device):
 
 
 def capture_planes_bf16(capbuf: torch.Tensor) -> torch.Tensor:
-    """Complex capture -> bf16 (re, im) planes [2, n] (through f32)."""
-    return torch.stack([capbuf.real, capbuf.imag]).float() \
+    """Complex capture [..., n] -> bf16 (re, im) planes [..., 2, n]
+    (through f32)."""
+    return torch.stack([capbuf.real, capbuf.imag], dim=-2).float() \
         .to(torch.bfloat16).contiguous()
 
 
 def capture_planes_int8(capbuf: torch.Tensor) -> torch.Tensor:
-    """ADC-grid capture -> int8 planes [2, n]: k = clip(round(128 x),
-    -127, 127), round half to even (the saturated +128 clips to 127)."""
-    p = torch.stack([capbuf.real, capbuf.imag]).float()
+    """ADC-grid capture [..., n] -> int8 planes [..., 2, n]: k =
+    clip(round(128 x), -127, 127), round half to even (the saturated +128
+    clips to 127)."""
+    p = torch.stack([capbuf.real, capbuf.imag], dim=-2).float()
     return torch.clamp(torch.round(p * 128.0), -127.0, 127.0) \
         .to(torch.int8).contiguous()
 

@@ -14,10 +14,14 @@ import torch
 from lte_cell_scanner_tpu_torch.models.search import (SearchConfig,
                                                       cell_search,
                                                       default_f_search_set)
-from lte_cell_scanner_tpu_torch.models.xcorr import pss_templates
-from lte_cell_scanner_tpu_torch.ops import corr_cuda
-from lte_cell_scanner_tpu_torch.sim.scenarios import (TWO_CELL_TRUTH,
+from lte_cell_scanner_tpu_torch.models.xcorr import (combine_start_indices,
+                                                     pss_templates)
+from lte_cell_scanner_tpu_torch.ops import corr_cuda, corr_fold_cuda
+from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
+from lte_cell_scanner_tpu_torch.sim.scenarios import (BAND_CELL_CARRIERS,
+                                                      TWO_CELL_TRUTH,
                                                       adc_quantize,
+                                                      band_captures,
                                                       two_cell_capture)
 
 FS = 1.92e6
@@ -115,3 +119,113 @@ def test_saturated_peak_records_fall_back_on_the_card(cuda, monkeypatch):
         [(c.n_id_cell(), c.ind, c.sfn) for c in want]
     for g, w in zip(got, want):
         assert abs(g.freq_superfine - w.freq_superfine) < 1e-3
+
+
+def _fold_operands(precision, case, n_c, device):
+    """C captures of 3 x 9600 + 400 samples with a fold-start table: the
+    +-75 kHz grid (real deltas of both signs, T = 21) or a synthetic +-60
+    table (the TPU's wide window, T = 15)."""
+    rng = np.random.default_rng(7 + n_c)
+    n_cap = 3 * 9600 + 400
+    if case == "grid":
+        f_set = np.arange(-75e3, 75e3 + 1, 25e3)
+        starts = combine_start_indices(f_set, FC, FC, FS, 3)
+        assert starts.min() == 0 and (starts - 9600 * np.arange(3)).min() < 0
+    else:
+        f_set = np.arange(-10e3, 10e3 + 1, 5e3)
+        deltas = rng.integers(-60, 61, size=(len(f_set), 3))
+        deltas[:, 0] = 0
+        starts = 9600 * np.arange(3)[None, :] + deltas
+    starts = torch.from_numpy(starts.astype(np.int32)).to(device)
+    tmpl = pss_templates(f_set, FC, FC, FS).reshape(-1, 137)
+    if precision == "int8":
+        codes = rng.integers(0, 256, size=(n_c, 2, n_cap))
+        cap = torch.from_numpy((codes[:, 0] - 127 + 1j * (codes[:, 1] - 127))
+                               / 128.0).to(device)
+        taps, _scale = corr_cuda.template_planes_int8(tmpl, device)
+        return corr_cuda.capture_planes_int8(cap), taps, starts
+    cap = torch.from_numpy(0.1 * (rng.normal(size=(n_c, n_cap))
+                                  + 1j * rng.normal(size=(n_c, n_cap))))
+    return (corr_cuda.capture_planes_bf16(cap.to(device)),
+            corr_cuda.template_planes_bf16(tmpl, device), starts)
+
+
+# ragged carrier counts, T = 21 and 15 (not multiples of the kernel's 12
+# templates per block or of the TPU's 16), deltas of both signs, +-60
+@pytest.mark.parametrize("case,n_c", [("grid", 3), ("wide", 5)])
+def test_bf16_fold_kernel_matches_its_plain_version(cuda, case, n_c):
+    cap, taps, starts = _fold_operands("bf16", case, n_c, cuda)
+    before = corr_cuda.LAUNCHES["pss_corr_fold_bf16"]
+    got = corr_fold_cuda.corr_fold_bf16(cap, taps, starts)
+    torch.cuda.synchronize()
+    assert corr_cuda.LAUNCHES["pss_corr_fold_bf16"] == before + 1
+    ref = corr_fold_cuda.corr_fold_bf16_plain(cap, taps, starts)
+    assert got.shape == ref.shape == (n_c, taps.shape[1], 9600)
+    # f32 sums of exact bf16 products in another order
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.max())
+
+
+@pytest.mark.parametrize("case,n_c", [("grid", 3), ("wide", 5)])
+def test_int8_fold_kernel_is_bit_equal_to_its_plain_version(cuda, case, n_c):
+    cap, taps, starts = _fold_operands("int8", case, n_c, cuda)
+    got = corr_fold_cuda.corr_fold_int8(cap, taps, starts)
+    ref = corr_fold_cuda.corr_fold_int8_plain(cap, taps, starts)
+    assert torch.equal(got, ref)
+
+
+def test_scan_band_on_a_slice_of_the_band(cuda):
+    """Five carriers of the 10 MHz band around its middle cell carrier:
+    one launch of the fused bf16 kernel, no v2 launch, the two cells on
+    744.0 MHz and nothing elsewhere."""
+    band, _adc = band_captures()
+    mid = BAND_CELL_CARRIERS[1]
+    part = band[mid - 2: mid + 3]
+    corr_cuda.reset_launch_counts()
+    cells = scan_band(part, default_f_search_set(FC, 100.0), FS,
+                      device=cuda)
+    assert corr_cuda.LAUNCHES == {"pss_corr_bf16": 0, "pss_corr_int8": 0,
+                                  "pss_corr_fold_bf16": 1,
+                                  "pss_corr_fold_int8": 0}
+    assert [sorted(c.n_id_cell() for c in cl) for cl in cells] == \
+        [[], [], sorted(TWO_CELL_TRUTH), [], []]
+    for c in cells[2]:
+        assert (c.n_rb_dl, c.n_ports) == (6, 2)
+
+
+def test_saturated_band_records_take_the_host_peak_search(cuda, monkeypatch):
+    """When a carrier of a chunk fills its peak records, the chunk's peak
+    search runs on the host from the front end's maps (one fused launch
+    still) and finds the same cells."""
+    from lte_cell_scanner_tpu_torch.parallel import carriers
+
+    band, _adc = band_captures()
+    mid = BAND_CELL_CARRIERS[1]
+    part = band[mid - 1: mid + 2]
+    f_set = default_f_search_set(FC, 100.0)
+    want = scan_band(part, f_set, FS, device=cuda)
+    monkeypatch.setattr(carriers, "PEAK_CAP", 1)
+    corr_cuda.reset_launch_counts()
+    got = scan_band(part, f_set, FS, device=cuda)
+    assert corr_cuda.LAUNCHES["pss_corr_fold_bf16"] == 1
+    assert [[(c.n_id_cell(), c.ind, c.sfn) for c in cl] for cl in got] == \
+        [[(c.n_id_cell(), c.ind, c.sfn) for c in cl] for cl in want]
+    assert [len(cl) for cl in got] == [0, 2, 0]
+    for g, w in zip(got[1], want[1]):
+        assert abs(g.freq_superfine - w.freq_superfine) < 1e-3
+
+
+def test_scan_band_takes_the_v2_route_on_a_wide_chunk(cuda):
+    """A chunk spanning 200 MHz: the cell carrier's fold starts lie 3
+    samples from the middle carrier's table, so the chunk runs the v2
+    kernel once per carrier with each carrier's exact fold."""
+    band, _adc = band_captures()
+    cap, fc, fcp = band[BAND_CELL_CARRIERS[1]]
+    noise = band[BAND_CELL_CARRIERS[1] + 1][0]
+    corr_cuda.reset_launch_counts()
+    cells = scan_band([(cap, fc, fcp), (noise, fc + 200e6, fcp + 200e6)],
+                      default_f_search_set(FC, 100.0), FS, device=cuda)
+    assert corr_cuda.LAUNCHES == {"pss_corr_bf16": 2, "pss_corr_int8": 0,
+                                  "pss_corr_fold_bf16": 0,
+                                  "pss_corr_fold_int8": 0}
+    assert [sorted(c.n_id_cell() for c in cl) for cl in cells] == \
+        [sorted(TWO_CELL_TRUTH), []]

@@ -54,8 +54,8 @@ def test_sss_foe_batch_fused_matches_tpu_package(cp_type):
     cap, peaks = _peaks(cp_type, seed=4)
     assert peaks
     ref = jsd.sss_foe_batch_fused(peaks, cap, 3.0, FS)
-    got = tsd.sss_foe_batch_fused(_port(peaks), torch.from_numpy(cap), 3.0,
-                                  FS)
+    got = tsd.sss_foe_batch_fused(_port(peaks), torch.from_numpy(cap)[None],
+                                  [0] * len(peaks), 3.0, FS)
     assert len(got) == len(ref)
     accepted = 0
     for r, g in zip(ref, got):

@@ -93,8 +93,9 @@ def test_device_peak_loop_matches_tpu_package(capture):
         jnp.asarray(pow_c), jnp.asarray(frq_c), jnp.asarray(slab),
         jnp.asarray(z), 2)
     recs_t, n_t = tpk.peak_search_device(
-        torch.from_numpy(pow_c), torch.from_numpy(frq_c),
-        torch.from_numpy(slab), torch.from_numpy(z), 2)
+        torch.from_numpy(pow_c)[None], torch.from_numpy(frq_c)[None],
+        torch.from_numpy(slab)[None], torch.from_numpy(z)[None], 2)
+    recs_t, n_t = recs_t[0], n_t[0]
     assert int(n_t) == int(n_j) >= 1
     np.testing.assert_array_equal(recs_t.numpy(), np.asarray(recs_j))
 
@@ -119,8 +120,9 @@ def test_device_peak_loop_ties_pick_the_first_maximum():
         jnp.asarray(pow_c), jnp.asarray(frq_c), jnp.asarray(slab),
         jnp.asarray(z), 2)
     recs_t, n_t = tpk.peak_search_device(
-        torch.from_numpy(pow_c), torch.from_numpy(frq_c),
-        torch.from_numpy(slab), torch.from_numpy(z), 2)
+        torch.from_numpy(pow_c)[None], torch.from_numpy(frq_c)[None],
+        torch.from_numpy(slab)[None], torch.from_numpy(z)[None], 2)
+    recs_t, n_t = recs_t[0], n_t[0]
     assert int(n_t) == int(n_j) == 3
     np.testing.assert_array_equal(recs_t.numpy(), np.asarray(recs_j))
     assert list(recs_t[:3, 3].numpy()) == [1.0, 1.0, 2.0]
