@@ -14,6 +14,16 @@ Phases, each fatal on failure:
      timed (CUDA events, median of 20 windows of 10 calls after warm-up)
      beside its plain version and a library yardstick, and its bound
      computed from this run's inputs;
+  3b. kernel phase at the same width for the correlation A/B path's
+     kernels: pss_corr_f32 (v1/v2 with f32 bands) and
+     pss_corr_bf16_f32out (v1 with bf16 bands, v3) on the float capture
+     within 1e-5 x max of their plain versions, pss_corr_int8_scaled
+     (the int8 probe) on the ADC-grid capture bit-equal, the sum probe
+     pss_corr_sum_bf16 within 1e-5 of the largest sum, and the per-chunk
+     probe (pss_corr_bf16 once per 16 templates) bit-equal to one
+     launch; each timed beside its plain version, a cuDNN conv1d
+     yardstick (f32, TF32 off, for the f32 kernel; bf16 otherwise) and
+     its bound;
   4. single-carrier path: ``cell_search`` on a synthetic two-cell capture,
      once on the float capture (bf16 kernel) and once on the same capture
      quantized to the 8-bit ADC grid (int8 kernel); launch counts are
@@ -24,6 +34,14 @@ Phases, each fatal on failure:
      stage synchronised);
   5. one cell_search under torch.profiler: the device's busy share and
      the device operations that take the most time;
+  5b. the correlation A/B path, launch counts zeroed just before and read
+     just after each run: the v1 route of ``xcorr_core`` (one launch of
+     pss_corr_bf16_f32out and nothing else; its strongest peak where the
+     production route puts it), then ``tools_torch/bench_corr_v2.py``
+     (the TPU tool's variants at full width and this card's tensor-core
+     rulers, printed beside the data-sheet peaks) and
+     ``tools_torch/bench_kernels.py`` (timings, then --parity-only), each
+     line printed;
   6. kernel phase at full width for the fused v4 kernels: C = 64 carriers
      (one chunk), T = 93, n_comb = 15, staged by the band scan's own
      planning from the first 64 carriers of ``band_captures`` (float band
@@ -45,8 +63,9 @@ Phases, each fatal on failure:
      total; median of 3 more runs, each stage synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
-  9. one JSON line of kernel records (all four kernels), then the result
-     line.
+  9. one JSON line of kernel records (all nine: the four above and the
+     five of the A/B path, whose launches are those of phase 5b), then
+     the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -66,13 +85,25 @@ import torch
 FC = 739e6
 PPM = 100.0
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
-# HBM3 bandwidth
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# f32 on the CUDA cores (the f32 kernel's type: a TF32 tensor-core path
+# would compute another function), HBM3 bandwidth
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCE = "lte_cell_scanner_tpu_torch/csrc/pss_corr.cu"
 FOLD_SOURCE = "lte_cell_scanner_tpu_torch/csrc/pss_corr_fold.cu"
-REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:407",
-            "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:416"}
+PALLAS = "lte_cell_scanner_tpu/ops/corr_pallas.py"
+PROBES = "tools/bench_corr_v2.py"
+REPLACES = {"bf16": f"{PALLAS}:407", "int8": f"{PALLAS}:416"}
+# the A/B path's kernels: the TPU kernels (rows of PERF.md's table) each
+# replaces
+AB_REPLACES = {"pss_corr_f32": f"{PALLAS}:67",
+               "pss_corr_bf16_f32out": f"{PALLAS}:67; {PALLAS}:429",
+               "pss_corr_int8_scaled": f"{PROBES}:355",
+               "pss_corr_sum_bf16": f"{PROBES}:205",
+               "pss_corr_bf16_per_chunk": f"{PROBES}:302"}
+BENCH_CORR_VARIANTS = "peak,v1,v2_128_16,v3_128_16,v3b_128_16,v2sum," \
+    "v2s_128_16,v2i_128"
+BENCH_REPEATS = "5"
 FOLD_REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:774",
                  "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:792"}
 CHUNK = 64                 # carriers per band-scan chunk (scan_band default)
@@ -147,12 +178,14 @@ def kernel_operands(capbuf: np.ndarray, f_set: np.ndarray):
     return kern, cap_q
 
 
-def bound(precision: str, cap_q, taps, n_lags: int):
+def bound(precision: str, cap_q, taps, n_lags: int, out_bytes=None):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth (each
-    input read once, the output written once) and the useful
-    multiply-adds over the tensor-core peak of the operand type."""
+    input read once, the output written once: by default the bf16
+    [T, n_lags] map) and the useful multiply-adds over the peak of the
+    operand type."""
     n_t = taps.shape[1]
-    out_bytes = n_t * n_lags * 2
+    if out_bytes is None:
+        out_bytes = n_t * n_lags * 2
     in_bytes = cap_q.numel() * cap_q.element_size() \
         + taps.numel() * taps.element_size()
     ops = 2.0 * 4 * n_t * n_lags * taps.shape[2]
@@ -162,12 +195,13 @@ def bound(precision: str, cap_q, taps, n_lags: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_call(cap_q, taps, n_lags: int):
+def library_call(cap_q, taps, n_lags: int, dtype=torch.bfloat16):
     """One PyTorch call computing the same correlation (Re and Im, without
     the |.|^2 epilogue): conv1d of the [1, 2, N] planes with [2T, 2, 137]
-    weights, in bf16 (cuDNN, TF32 off).  Used only as a yardstick."""
-    x = cap_q.to(torch.bfloat16)[None]
-    t = taps.to(torch.bfloat16)
+    weights, in bf16 or f32 (cuDNN, TF32 off).  Used only as a
+    yardstick."""
+    x = cap_q.to(dtype)[None]
+    t = taps.to(dtype)
     w = torch.cat([torch.stack([t[0], -t[1]], dim=1),
                    torch.stack([t[1], t[0]], dim=1)], dim=0).contiguous()
 
@@ -223,6 +257,209 @@ def check_kernel(precision: str, kern, cap_q, n_lags: int) -> dict:
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def ab_operands(cap_float, cap_adc, f_set):
+    """The A/B path's operands at full width: the float capture as f32 and
+    bf16 planes with the v1 route's f32 and bf16 template planes, the
+    ADC-grid capture as int8 planes with int8 taps and the int8 probe's
+    power scale."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.xcorr import (pss_templates,
+                                                         v1_operands)
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    dev = torch.device("cuda")
+    tmpl = pss_templates(f_set, FC, FC, FS_WORK).reshape(-1, 137)
+    cap_t = torch.from_numpy(cap_float.astype(np.complex64)).to(dev)
+    cap_a = torch.from_numpy(cap_adc.astype(np.complex64)).to(dev)
+    taps_i, _scale = corr_cuda.template_planes_int8(tmpl, dev)
+    return {"f32": (corr_cuda.capture_planes_f32(cap_t),
+                    v1_operands(tmpl, "f32", dev).taps),
+            "bf16": (corr_cuda.capture_planes_bf16(cap_t),
+                     v1_operands(tmpl, "bf16", dev).taps),
+            "int8": (corr_cuda.capture_planes_int8(cap_a), taps_i,
+                     corr_cuda.probe_inv(tmpl))}
+
+
+def check_ab_kernels(ops, n_lags: int) -> dict:
+    """The A/B path's kernels against their plain versions at full width
+    (f32 maps within 1e-5 x max, the scaled int8 map bit-equal, the sums
+    within 1e-5 relative, the per-chunk map bit-equal to one launch), then
+    timed beside their plain versions, a cuDNN conv1d yardstick (f32 for
+    the f32 kernel, else bf16) and their bounds."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda as cc
+    cap_f, taps_f = ops["f32"]
+    cap_b, taps_b = ops["bf16"]
+    cap_i, taps_i, inv = ops["int8"]
+    n_t = taps_b.shape[1]
+    f32_map = n_t * n_lags * 4
+    sums = 4 * int(np.prod(cc.sum_shape(n_t, n_lags)))
+    # name: (kernel, plain version, reference of the check, check, library
+    #        yardstick, bound)
+    cases = {
+        "pss_corr_f32": (
+            lambda: cc.corr_pow_f32(cap_f, taps_f, n_lags),
+            lambda: cc.corr_pow_f32_plain(cap_f, taps_f, n_lags), None,
+            "max", library_call(cap_f, taps_f, n_lags, torch.float32),
+            bound("f32", cap_f, taps_f, n_lags, f32_map)),
+        "pss_corr_bf16_f32out": (
+            lambda: cc.corr_pow_bf16(cap_b, taps_b, n_lags, torch.float32),
+            lambda: cc.corr_pow_f32_plain(cap_b, taps_b, n_lags), None,
+            "max", library_call(cap_b, taps_b, n_lags),
+            bound("bf16", cap_b, taps_b, n_lags, f32_map)),
+        "pss_corr_int8_scaled": (
+            lambda: cc.corr_pow_int8_scaled(cap_i, taps_i, n_lags, inv),
+            lambda: cc.corr_pow_int8_scaled_plain(cap_i, taps_i, n_lags,
+                                                  inv), None,
+            "equal", library_call(cap_i, taps_i, n_lags),
+            bound("int8", cap_i, taps_i, n_lags)),
+        "pss_corr_sum_bf16": (
+            lambda: cc.corr_pow_sum_bf16(cap_b, taps_b, n_lags),
+            lambda: cc.corr_pow_sum_bf16_plain(cap_b, taps_b, n_lags), None,
+            "relative", library_call(cap_b, taps_b, n_lags),
+            bound("bf16", cap_b, taps_b, n_lags, sums)),
+        "pss_corr_bf16_per_chunk": (
+            lambda: cc.corr_pow_bf16_per_chunk(cap_b, taps_b, n_lags),
+            lambda: cc.corr_pow_bf16_plain(cap_b, taps_b, n_lags),
+            lambda: cc.corr_pow_bf16(cap_b, taps_b, n_lags),
+            "equal", library_call(cap_b, taps_b, n_lags),
+            bound("bf16", cap_b, taps_b, n_lags)),
+    }
+    records = {}
+    for name, (kernel, plain, ref_fn, check, library, (bound_ms, by)) \
+            in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = (ref_fn or plain)()
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            fail(f"{name}: shape/dtype {tuple(got.shape)} {got.dtype}, "
+                 f"expected {tuple(ref.shape)} {ref.dtype}")
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"{name}: non-finite output")
+        err = (got.float() - ref.float()).abs()
+        max_abs_err = float(err.max())
+        scale = float(ref.float().abs().max())
+        if check == "equal":
+            n_diff = int((got.view(torch.int16) != ref.view(torch.int16))
+                         .sum())
+            what = "one launch" if ref_fn else "plain"
+            print(f"{name} vs {what}: {n_diff} of {got.numel()} entries "
+                  f"differ (bit-equal required)")
+            if n_diff:
+                fail(f"{name} is not bit-equal to {what}")
+        else:
+            print(f"{name} vs plain: max |err| {max_abs_err:.3e}, "
+                  f"{max_abs_err / scale:.3e} of the max {scale:.3e} "
+                  f"({'relative' if check == 'relative' else 'x max'} "
+                  f"bar 1e-5)")
+            if max_abs_err > 1e-5 * scale:
+                fail(f"{name} disagrees with its plain version")
+        del got, ref, err
+        ms = time_cuda(kernel)
+        plain_ms = time_cuda(plain, reps=5, per_rep=2, warmup=1)
+        library_ms = time_cuda(library)
+        print(f"{name}: {ms:.4f} ms; plain {plain_ms:.4f} ms; library "
+              f"conv1d {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({by})")
+        records[name] = {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": AB_REPLACES[name], "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
+    return records
+
+
+def read_launches(label: str, expect) -> dict:
+    """The launch counts since the last reset: every kernel in ``expect``
+    launched, and no other."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in corr_cuda.LAUNCHES.items() if v}
+    print(f"{label}: launches {launched}")
+    if set(launched) != set(expect):
+        fail(f"{label}: launched {sorted(launched)}, expected "
+             f"{sorted(expect)}")
+    return launched
+
+
+def run_ab_path(cap_float, f_set, counts: dict) -> None:
+    """The v1 route of the front end: ``xcorr_core`` with v1 bf16 operands
+    on the float capture launches one pss_corr_bf16_f32out and nothing
+    else, and puts the strongest peak where the production v2 route puts
+    it, within 2e-2 x max (tests/test_xcorr.py:195) on the collapsed
+    powers."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.xcorr import (_front_staging,
+                                                         v1_operands,
+                                                         xcorr_core)
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    dev = torch.device("cuda")
+    cap_t, tmpl, starts, kern, _n = _front_staging(
+        cap_float, f_set, FC, FC, FS_WORK, "auto", dev, None, True)
+    v1 = v1_operands(tmpl.reshape(-1, 137).cpu().numpy(), "bf16", dev)
+    corr_cuda.reset_launch_counts()
+    got = xcorr_core(cap_t, None, starts, 2, False, True, v1)
+    launched = read_launches("xcorr_core, v1 route",
+                             {"pss_corr_bf16_f32out"})
+    if launched["pss_corr_bf16_f32out"] != 1:
+        fail("the v1 route launched pss_corr_bf16_f32out more than once")
+    want = xcorr_core(cap_t, None, starts, 2, False, True, kern)
+    peak_got, peak_want = int(got[2].argmax()), int(want[2].argmax())
+    dev_rel = float((got[2] - want[2]).abs().max() / want[2].max())
+    print(f"xcorr_core v1 vs v2 route: strongest peak (pss, lag) "
+          f"{divmod(peak_got, 9600)} vs {divmod(peak_want, 9600)}, "
+          f"collapsed powers within {dev_rel:.3e} of the max")
+    if peak_got != peak_want or dev_rel > 2e-2:
+        fail("the v1 route disagrees with the production route")
+    for k, v in launched.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def run_tool(label: str, main, argv) -> dict:
+    """One run of a tools_torch bench's main(argv) on the card: its JSON
+    line echoed and parsed; fails unless it exits 0."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue().strip()
+    print(f"{label}: {out}")
+    if rc != 0:
+        fail(f"{label} exited {rc}")
+    return json.loads(out.splitlines()[-1])
+
+
+def phase_benches(counts: dict) -> None:
+    """The kernel benches at full width, launch counts zeroed before and
+    read after each: bench_corr_v2 (the TPU tool's variants and the
+    card's tensor-core rulers), bench_kernels (timing, then parity)."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from tools_torch import bench_corr_v2, bench_kernels
+
+    corr_cuda.reset_launch_counts()
+    res = run_tool("bench_corr_v2", bench_corr_v2.main, [
+        "--variants", BENCH_CORR_VARIANTS, "--repeats", BENCH_REPEATS])
+    runs = [read_launches("bench_corr_v2", {
+        "pss_corr_bf16", "pss_corr_bf16_f32out", "pss_corr_sum_bf16",
+        "pss_corr_bf16_per_chunk", "pss_corr_int8_scaled"})]
+    for key, peak in (("peak_bf16_tflops", "bf16"),
+                      ("peak_bf16_f32out_tflops", "bf16"),
+                      ("peak_int8_tops", "int8")):
+        print(f"tensor-core ruler {key}: {res[key]:.1f} measured, data "
+              f"sheet {PEAK_OPS[peak] / 1e12:.0f}")
+    corr_cuda.reset_launch_counts()
+    run_tool("bench_kernels", bench_kernels.main,
+             ["--repeats", BENCH_REPEATS])
+    runs.append(read_launches("bench_kernels", {
+        "pss_corr_bf16", "pss_corr_bf16_f32out", "pss_corr_f32"}))
+    corr_cuda.reset_launch_counts()
+    run_tool("bench_kernels --parity-only", bench_kernels.main,
+             ["--parity-only"])
+    runs.append(read_launches("bench_kernels --parity-only", {
+        "pss_corr_bf16", "pss_corr_bf16_f32out", "pss_corr_f32"}))
+    for launched in runs:
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
 
 
 def expect_cells(cells, label: str) -> None:
@@ -573,6 +810,9 @@ def main() -> int:
             fail(f"staging picked {kern.precision} for the {precision} "
                  f"capture")
         records[precision] = check_kernel(precision, kern, cap_q, n_lags)
+    ab_records = check_ab_kernels(ab_operands(cap_float, cap_adc, f_set),
+                                  n_lags)
+    torch.cuda.empty_cache()
 
     counts = {}
     run_main_path("float capture", cap_float, f_set, "bf16", counts)
@@ -581,6 +821,9 @@ def main() -> int:
     from lte_cell_scanner_tpu_torch.models.search import cell_search
     phase_profile("cell_search (float capture)", lambda: cell_search(
         cap_float, f_set, FC, FC, FS_WORK, device="cuda"))
+    ab_counts = {}
+    run_ab_path(cap_float, f_set, ab_counts)
+    phase_benches(ab_counts)
 
     t0 = time.perf_counter()
     band_float, band_adc = band_captures()
@@ -608,6 +851,9 @@ def main() -> int:
     for rec in (records["bf16"], records["int8"], fold_records["bf16"],
                 fold_records["int8"]):
         rec["launches"] = counts[rec["name"]]
+        kernels.append(rec)
+    for name, rec in ab_records.items():
+        rec["launches"] = ab_counts[name]
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

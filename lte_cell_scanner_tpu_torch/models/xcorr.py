@@ -5,7 +5,8 @@ Behavioral contract: reference xcorr_pss and its subfunctions
 
 - xc_correlate: the exact correlation (``ops/corr.py``) or the CUDA
   correlation-power kernels (``ops/corr_cuda.py``: int8 for captures on
-  the 8-bit ADC grid, bf16 otherwise).
+  the 8-bit ADC grid, bf16 otherwise; the v1 and v3 A/B routes through
+  ``xcorr_core`` with ``v1_operands``/``v3_operands``).
 - xc_combine: the k_factor-scaled half-frame fold (searcher.cpp:263-308)
   as gathers at host-precomputed integer start indices.
 - sp_est: the 274-sample running power as a cumulative-sum difference.
@@ -68,12 +69,49 @@ def combine_start_indices(f_search_set: np.ndarray, fc_requested: float,
     return round_i(m[None, :] * 0.005 * k_factor[:, None] * fs_programmed)
 
 
+# (route, precision) -> the map's storage types that TPU route has: v2
+# (corr_pow_core_v2 with post="xla"; the production route takes its bf16
+# map, the int8 UNSCALED map, and the f32 map of f32 bands), v1 the
+# banded A/B route (f32 map), v3 v2's in-kernel-transpose variant (bf16
+# operands)
+_ROUTES = {("v2", "bf16"): (torch.bfloat16, torch.float32),
+           ("v2", "int8"): (torch.bfloat16,), ("v2", "f32"): (torch.float32,),
+           ("v1", "bf16"): (torch.float32,), ("v1", "f32"): (torch.float32,),
+           ("v3", "bf16"): (torch.float32, torch.bfloat16)}
+
+
 @dataclass
 class KernelOperands:
     """Quantized operands of one CUDA correlation route."""
-    precision: str                  # "bf16" or "int8"
+    precision: str                  # "bf16", "int8" or "f32"
     taps: torch.Tensor              # [2, T, 137] template planes
     power_scale: Optional[float]    # int8 only: restores capture units
+    out_dtype: torch.dtype = torch.bfloat16   # the power map's type
+    route: str = "v2"               # the TPU route: "v1", "v2" or "v3"
+
+    def __post_init__(self):
+        if self.out_dtype not in _ROUTES.get((self.route, self.precision),
+                                             ()):
+            raise ValueError(f"no {self.route} route with {self.precision} "
+                             f"operands and a {self.out_dtype} map")
+
+
+def v1_operands(tmpl_flat, precision: str, device) -> KernelOperands:
+    """Operands of the v1 A/B route (the TPU package's banded kernel with
+    a float band pair): f32 or bf16 template planes, f32 map."""
+    planes = {"f32": corr_cuda.template_planes_f32,
+              "bf16": corr_cuda.template_planes_bf16}[precision]
+    return KernelOperands(precision, planes(tmpl_flat, device), None,
+                          torch.float32, "v1")
+
+
+def v3_operands(tmpl_flat, device, out_dtype: torch.dtype = torch.float32
+                ) -> KernelOperands:
+    """Operands of the v3 route (bf16 bands, ``post="kernel"``): bf16
+    template planes, a map of ``out_dtype``."""
+    return KernelOperands("bf16",
+                          corr_cuda.template_planes_bf16(tmpl_flat, device),
+                          None, out_dtype, "v3")
 
 
 def use_kernel_corr(corr_backend: str, device: torch.device) -> bool:
@@ -93,10 +131,10 @@ def _corr_stage(capbuf: torch.Tensor, templates: Optional[torch.Tensor],
                 keep_xc: bool, kern: Optional[KernelOperands]):
     """Correlation-power part of the front end -> (xc2 [3, n_f, n_lags],
     xc or None, power scale or None).  With kernel operands the map comes
-    back bf16 (the fold accumulates it in the working float type); the
-    int8 map is UNSCALED and the scale is applied after the fold.  The
-    kernels read kern.taps; templates [3, n_f, 137] serve the exact route
-    only (None on the kernel route)."""
+    back in kern.out_dtype (the fold accumulates it in the working float
+    type); the int8 map is UNSCALED and the scale is applied after the
+    fold.  The kernels read kern.taps; templates [3, n_f, 137] serve the
+    exact route only (None on the kernel route)."""
     n_lags = capbuf.shape[0] - (PSS_TD_LEN - 1)
     if kern is not None:
         n_f = kern.taps.shape[1] // 3
@@ -106,9 +144,13 @@ def _corr_stage(capbuf: torch.Tensor, templates: Optional[torch.Tensor],
         if kern.precision == "int8":
             xc2 = corr_cuda.corr_pow_int8(
                 corr_cuda.capture_planes_int8(capbuf), kern.taps, n_lags)
+        elif kern.precision == "f32":
+            xc2 = corr_cuda.corr_pow_f32(
+                corr_cuda.capture_planes_f32(capbuf), kern.taps, n_lags)
         else:
             xc2 = corr_cuda.corr_pow_bf16(
-                corr_cuda.capture_planes_bf16(capbuf), kern.taps, n_lags)
+                corr_cuda.capture_planes_bf16(capbuf), kern.taps, n_lags,
+                kern.out_dtype)
         return xc2.reshape(3, n_f, n_lags), None, kern.power_scale
     n_f = templates.shape[1]
     xc = correlate(capbuf, templates.reshape(3 * n_f, PSS_TD_LEN))
@@ -193,6 +235,31 @@ def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
         refine_slab = torch.stack(rows, dim=2)          # [C, 3, 2a+1, 9600]
     return (None if lean else xc_single, None if lean else xc_inc,
             pow_collapsed, frq_collapsed, sp, sp_incoherent, refine_slab)
+
+
+def xcorr_core(cap_t: torch.Tensor, templates: Optional[torch.Tensor],
+               start_idx: torch.Tensor, ds_comb_arm: int,
+               keep_xc: bool = True, lean: bool = False,
+               kern: Optional[KernelOperands] = None):
+    """Device portion of xcorr_pss, the counterpart of the TPU package's
+    ``_xcorr_core``: correlation (the exact route, or the CUDA route of
+    ``kern``: v2, v1 or v3 operands), fold, delay spread, collapse,
+    sp_est and, when lean, the refinement slab, for one capture cap_t
+    [n_cap] on the device.  templates [3, n_f, 137] serve the exact route
+    (None on a kernel route); start_idx [n_f, n_comb].
+
+    Returns (xc_single [3, n_f, 9600], xc_inc [3, n_f, 9600], pow [3,
+    9600], frq [3, 9600], sp [n_sp], sp_inc [9600], xc [3, n_f, n_lags],
+    slab [3, 2*arm+1, 9600]) as device tensors, with None where the TPU
+    package's has it: xc unless keep_xc; xc_single, xc_inc and sp when
+    lean; slab unless lean."""
+    xc2, xc, pw_scale = _corr_stage(cap_t, templates, keep_xc, kern)
+    xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
+    outs = _post_fold_stage(xc_single[None], cap_t[None], ds_comb_arm, lean)
+    (xc_single, xc_inc, pow_c, frq_c, sp, sp_inc, slab) = [
+        None if o is None else o[0] for o in outs]
+    return (xc_single, xc_inc, pow_c, frq_c, sp, sp_inc,
+            xc if keep_xc else None, slab)
 
 
 @dataclass
@@ -290,11 +357,9 @@ def xcorr_pss(capbuf, f_search_set, ds_comb_arm: int, fc_requested: float,
     cap_t, templates, start_idx, kern, n_comb_xc = _front_staging(
         capbuf, f_search_set, fc_requested, fc_programmed, fs_programmed,
         corr_backend, device, cap_t, want_kernel=not keep_xc)
-    xc2, xc, pw_scale = _corr_stage(cap_t, templates, keep_xc, kern)
-    xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
-    outs = _post_fold_stage(xc_single[None], cap_t[None], ds_comb_arm, lean)
-    (xc_single, xc_inc, pow_c, frq_c, sp, sp_inc, slab) = [
-        None if o is None else o[0].cpu().numpy() for o in outs]
+    (xc_single, xc_inc, pow_c, frq_c, sp, sp_inc, xc, slab) = [
+        None if o is None else o.cpu().numpy() for o in xcorr_core(
+            cap_t, templates, start_idx, ds_comb_arm, keep_xc, lean, kern)]
     n_comb_sp = (cap_t.shape[0] - 136 - 137) // HALF_FRAME_LEN
     return XcorrResult(
         xc_incoherent_single=xc_single,
@@ -306,5 +371,5 @@ def xcorr_pss(capbuf, f_search_set, ds_comb_arm: int, fc_requested: float,
         n_comb_xc=n_comb_xc,
         n_comb_sp=n_comb_sp,
         refine_slab=slab,
-        xc=xc.cpu().numpy() if keep_xc else None,
+        xc=xc,
     )

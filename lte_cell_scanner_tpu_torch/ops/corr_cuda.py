@@ -1,35 +1,58 @@
 """PSS correlation-power kernels (CUDA, ``csrc/pss_corr.cu``) and their
 plain PyTorch versions.
 
-The counterpart of the TPU package's production v2 correlation route
-(``ops/corr_pallas.py::corr_pow_core_v2`` with ``post="xla"``): for all
-T = 3 * n_f templates and all lags, p[t, l] = |sum_m tmpl[t, m] *
-cap[l + m]|^2 as a bf16 [T, n_lags] map.
+The counterpart of the TPU package's correlation routes that produce the
+[template, lag] power map (``ops/corr_pallas.py``): for all T = 3 * n_f
+templates and all lags, p[t, l] = |sum_m tmpl[t, m] * cap[l + m]|^2.
 
-- ``corr_pow_bf16`` replaces ``_corr_kernel_v2``: bf16 operands, f32
-  accumulation.  Float and simulated captures.
+- ``corr_pow_bf16`` replaces ``_corr_kernel_v2`` (the production route,
+  bf16 map) and ``_corr_kernel_v3``: bf16 operands, f32 accumulation;
+  ``out_dtype=torch.float32`` (``pss_corr_bf16_f32out``) is v1 with bf16
+  bands and v3 with f32 output.  Float and simulated captures.
+- ``corr_pow_f32`` replaces v1 (``_corr_kernel``) and v2 with f32 bands:
+  f32 operands and sums, f32 map.
 - ``corr_pow_int8`` replaces ``_corr_kernel_v2_int8``: int8 operands,
   exact integer accumulation, UNSCALED output; ``template_planes_int8``
   returns the power scale the caller applies after the fold.  Captures
   on the 8-bit ADC grid (``is_adc_grid``).
+- ``corr_pow_int8_scaled`` replaces the int8 probe of
+  ``tools/bench_corr_v2.py`` (``_kern_i8``): the int8 map times the power
+  scale inside the kernel.
+- ``corr_pow_sum_bf16`` replaces that tool's ``_sum_kernel``: the bf16 map
+  summed in the kernel, no map written.
+- ``corr_pow_bf16_per_chunk`` is that tool's per-chunk probe: the bf16
+  kernel launched once per chunk of templates.
 
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
 error) and takes the plain version only for CPU tensors.  ``LAUNCHES``
-counts kernel launches per wrapper, for these two kernels and the fused
+counts kernel launches per wrapper, for these kernels and the fused
 correlation-plus-fold kernels of ``ops/corr_fold_cuda.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..constants import PSS_TD_LEN
 
 LAUNCHES = {"pss_corr_bf16": 0, "pss_corr_int8": 0,
+            "pss_corr_f32": 0, "pss_corr_bf16_f32out": 0,
+            "pss_corr_int8_scaled": 0, "pss_corr_sum_bf16": 0,
+            "pss_corr_bf16_per_chunk": 0,
             "pss_corr_fold_bf16": 0, "pss_corr_fold_int8": 0}
+
+# The sum probe's TPU geometry (tools/bench_corr_v2.py:205-239): rows of
+# W = 120 lags in row blocks of 128 rows, templates in chunks of 16, and
+# the first 8 lags of each row (the (8, 128) output tile's sublanes).
+SUM_ROW_LAGS = 120
+SUM_BLOCK_LAGS = 128 * SUM_ROW_LAGS
+SUM_T_CHUNK = 16
+SUM_COLS = 8
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +89,12 @@ def _planes_f32(templates) -> np.ndarray:
     return np.stack([tf.real, tf.imag])                    # [2, T, 137] f32
 
 
+def template_planes_f32(templates, device) -> torch.Tensor:
+    """[T, 137] complex templates -> f32 (re, im) planes [2, T, 137],
+    through complex64 as the TPU package's band matrices are."""
+    return torch.from_numpy(_planes_f32(templates)).to(device)
+
+
 def template_planes_bf16(templates, device) -> torch.Tensor:
     """[T, 137] complex templates -> bf16 (re, im) planes [2, T, 137],
     rounded through complex64 as the TPU band builder does."""
@@ -86,11 +115,24 @@ def template_planes_int8(templates, device):
     return torch.from_numpy(q).to(device), scale
 
 
+def probe_inv(templates) -> np.float32:
+    """The int8 probe's power scale (tools/bench_corr_v2.py:349-352):
+    (1 / (128 s_g))^2 with s_g and the square taken in f32, as the probe
+    takes them (one f32 step from template_planes_int8's scale at most)."""
+    s_g = 127.0 / np.max(np.abs(_planes_f32(templates)))
+    return np.float32(1.0 / (128.0 * s_g)) ** 2
+
+
+def capture_planes_f32(capbuf: torch.Tensor) -> torch.Tensor:
+    """Complex capture [..., n] -> f32 (re, im) planes [..., 2, n]."""
+    return torch.stack([capbuf.real, capbuf.imag], dim=-2).float() \
+        .contiguous()
+
+
 def capture_planes_bf16(capbuf: torch.Tensor) -> torch.Tensor:
     """Complex capture [..., n] -> bf16 (re, im) planes [..., 2, n]
     (through f32)."""
-    return torch.stack([capbuf.real, capbuf.imag], dim=-2).float() \
-        .to(torch.bfloat16).contiguous()
+    return capture_planes_f32(capbuf).to(torch.bfloat16)
 
 
 def capture_planes_int8(capbuf: torch.Tensor) -> torch.Tensor:
@@ -116,25 +158,69 @@ def _re_im(cap: torch.Tensor, taps: torch.Tensor, n_lags: int):
     return w_re @ win.T, w_im @ win.T
 
 
+def corr_pow_f32_plain(cap: torch.Tensor, taps: torch.Tensor,
+                       n_lags: int) -> torch.Tensor:
+    """Plain version of the f32-output kernels (``pss_corr_f32``,
+    ``pss_corr_bf16_f32out``): the operands widened to f32, f32 sums (TF32
+    must be off for CUDA matmuls, which is PyTorch's default), re^2 + im^2
+    in f32."""
+    re, im = _re_im(cap.float(), taps.float(), n_lags)
+    return re * re + im * im
+
+
 def corr_pow_bf16_plain(cap: torch.Tensor, taps: torch.Tensor,
                         n_lags: int) -> torch.Tensor:
-    """Plain version of the bf16 kernel: the bf16 operands widened to
-    f32, f32 accumulation (TF32 must be off for CUDA matmuls, which is
-    PyTorch's default), re^2 + im^2 rounded to bf16."""
-    re, im = _re_im(cap.float(), taps.float(), n_lags)
-    return (re * re + im * im).to(torch.bfloat16)
+    """Plain version of the bf16 kernel: the f32 map rounded to bf16."""
+    return corr_pow_f32_plain(cap, taps, n_lags).to(torch.bfloat16)
+
+
+def _int8_re_im(cap: torch.Tensor, taps: torch.Tensor, n_lags: int):
+    """Integer-exact (Re, Im) of the int8 correlation (float64 holds every
+    partial sum, all integers below 2^23, exactly), cast to f32."""
+    re, im = _re_im(cap.double(), taps.double(), n_lags)
+    return re.float(), im.float()
 
 
 def corr_pow_int8_plain(cap: torch.Tensor, taps: torch.Tensor,
                         n_lags: int) -> torch.Tensor:
-    """Plain version of the int8 kernel: integer-exact sums (float64
-    holds every partial sum, all integers below 2^23, exactly), cast to
-    f32, then re*re + im*im as separate f32 operations and a bf16 store
-    -- the kernel's rounding, bit for bit."""
-    re, im = _re_im(cap.double(), taps.double(), n_lags)
-    re = re.float()
-    im = im.float()
+    """Plain version of the int8 kernel: the exact sums, then re*re +
+    im*im as separate f32 operations and a bf16 store -- the kernel's
+    rounding, bit for bit."""
+    re, im = _int8_re_im(cap, taps, n_lags)
     return (re * re + im * im).to(torch.bfloat16)
+
+
+def corr_pow_int8_scaled_plain(cap: torch.Tensor, taps: torch.Tensor,
+                               n_lags: int, inv) -> torch.Tensor:
+    """Plain version of the scaled int8 kernel: the exact sums, re*re +
+    im*im, then times inv, each a separate f32 operation, and a bf16
+    store -- the kernel's rounding, bit for bit."""
+    re, im = _int8_re_im(cap, taps, n_lags)
+    scale = torch.tensor(np.float32(inv), device=re.device)
+    return ((re * re + im * im) * scale).to(torch.bfloat16)
+
+
+def sum_shape(n_t: int, n_lags: int):
+    """[n_rb, n_tc, 8, 16]: the sum probe's output for T = n_t templates
+    and n_lags lags (whole row blocks of 15360 lags, chunks of 16)."""
+    return (-(-n_lags // SUM_BLOCK_LAGS), -(-n_t // SUM_T_CHUNK), SUM_COLS,
+            SUM_T_CHUNK)
+
+
+def corr_pow_sum_bf16_plain(cap: torch.Tensor, taps: torch.Tensor,
+                            n_lags: int) -> torch.Tensor:
+    """Plain version of the sum probe, from the full f32 map of the
+    zero-padded capture (lags past n_lags up to whole row blocks) and of
+    the templates padded to whole chunks with zero taps:
+    S[i, j, c, tc] = sum_{r < 128} p[16 j + tc, 15360 i + 120 r + c]."""
+    n_rb, n_tc, _, _ = sum_shape(taps.shape[1], n_lags)
+    span = n_rb * SUM_BLOCK_LAGS
+    cap = F.pad(cap.float(),
+                (0, max(0, span + PSS_TD_LEN - 1 - cap.shape[1])))
+    taps = F.pad(taps.float(), (0, 0, 0, n_tc * SUM_T_CHUNK - taps.shape[1]))
+    p = corr_pow_f32_plain(cap, taps, span).reshape(
+        n_tc, SUM_T_CHUNK, n_rb, 128, SUM_ROW_LAGS)[..., :SUM_COLS]
+    return p.sum(dim=3).permute(2, 0, 3, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +228,8 @@ def corr_pow_int8_plain(cap: torch.Tensor, taps: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _lib = None
+_MAP_ENTRIES = ("pss_corr_bf16", "pss_corr_int8", "pss_corr_f32",
+                "pss_corr_bf16_f32out", "pss_corr_sum_bf16")
 
 
 def _kernels():
@@ -149,11 +237,14 @@ def _kernels():
     if _lib is None:
         from ..cuda_build import load
         lib = load("pss_corr")
-        for fn in (lib.pss_corr_bf16, lib.pss_corr_int8):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        for name in _MAP_ENTRIES:
+            getattr(lib, name).argtypes = head + [ctypes.c_void_p]
+        lib.pss_corr_int8_scaled.argtypes = head + [ctypes.c_float,
+                                                    ctypes.c_void_p]
+        for name in _MAP_ENTRIES + ("pss_corr_int8_scaled",):
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -179,30 +270,78 @@ def _check(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
 
 
 def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
-            n_lags: int) -> torch.Tensor:
+            out: torch.Tensor, n_lags: int, *extra,
+            count: Optional[str] = None) -> torch.Tensor:
+    """Launch entry point ``name`` writing ``out`` (allocated by the
+    caller); counts the launch under ``count`` (default: ``name``)."""
     if cap.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {cap.device}")
-    out = torch.empty((taps.shape[1], n_lags), dtype=torch.bfloat16,
-                      device=cap.device)
     with torch.cuda.device(cap.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_kernels(), name)(
             cap.data_ptr(), taps.data_ptr(), out.data_ptr(),
-            int(cap.shape[1]), int(taps.shape[1]), int(n_lags), stream)
+            int(cap.shape[1]), int(taps.shape[1]), int(n_lags), *extra,
+            stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
     return out
 
 
-def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor,
-                  n_lags: int) -> torch.Tensor:
-    """bf16 correlation-power map [T, n_lags] from bf16 capture planes
-    [2, n] and template planes [2, T, 137]."""
+def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
+    return torch.empty((taps.shape[1], n_lags), dtype=dtype,
+                       device=taps.device)
+
+
+def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Correlation-power map [T, n_lags] from bf16 capture planes [2, n]
+    and template planes [2, T, 137], stored as ``out_dtype``: bf16
+    (``pss_corr_bf16``) or f32 (``pss_corr_bf16_f32out``)."""
     _check(cap, taps, n_lags, torch.bfloat16)
+    if out_dtype == torch.bfloat16:
+        plain, name = corr_pow_bf16_plain, "pss_corr_bf16"
+    elif out_dtype == torch.float32:
+        plain, name = corr_pow_f32_plain, "pss_corr_bf16_f32out"
+    else:
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
     if cap.device.type == "cpu":
-        return corr_pow_bf16_plain(cap, taps, n_lags)
-    return _launch("pss_corr_bf16", cap, taps, n_lags)
+        return plain(cap, taps, n_lags)
+    return _launch(name, cap, taps, _map(taps, n_lags, out_dtype), n_lags)
+
+
+def corr_pow_bf16_per_chunk(cap: torch.Tensor, taps: torch.Tensor,
+                            n_lags: int, t_chunk: int = 16) -> torch.Tensor:
+    """The bf16 map of ``corr_pow_bf16`` with one launch of
+    ``pss_corr_bf16`` per chunk of ``t_chunk`` templates, each writing
+    its rows of one [T, n_lags] output (the per-chunk probe of
+    tools/bench_corr_v2.py:268-328, which measures the cost of a launch
+    per chunk against one launch)."""
+    _check(cap, taps, n_lags, torch.bfloat16)
+    if t_chunk < 1:
+        raise ValueError(f"t_chunk must be positive, got {t_chunk}")
+    starts = range(0, taps.shape[1], t_chunk)
+    if cap.device.type == "cpu":
+        return torch.cat([corr_pow_bf16_plain(
+            cap, taps[:, j: j + t_chunk], n_lags) for j in starts])
+    out = _map(taps, n_lags, torch.bfloat16)
+    for j in starts:
+        _launch("pss_corr_bf16", cap, taps[:, j: j + t_chunk].contiguous(),
+                out[j: j + t_chunk], n_lags,
+                count="pss_corr_bf16_per_chunk")
+    return out
+
+
+def corr_pow_f32(cap: torch.Tensor, taps: torch.Tensor,
+                 n_lags: int) -> torch.Tensor:
+    """f32 correlation-power map [T, n_lags] from f32 capture planes
+    [2, n] and template planes [2, T, 137]."""
+    _check(cap, taps, n_lags, torch.float32)
+    if cap.device.type == "cpu":
+        return corr_pow_f32_plain(cap, taps, n_lags)
+    return _launch("pss_corr_f32", cap, taps,
+                   _map(taps, n_lags, torch.float32), n_lags)
 
 
 def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor,
@@ -212,4 +351,36 @@ def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor,
     _check(cap, taps, n_lags, torch.int8)
     if cap.device.type == "cpu":
         return corr_pow_int8_plain(cap, taps, n_lags)
-    return _launch("pss_corr_int8", cap, taps, n_lags)
+    return _launch("pss_corr_int8", cap, taps,
+                   _map(taps, n_lags, torch.bfloat16), n_lags)
+
+
+def corr_pow_int8_scaled(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
+                         inv) -> torch.Tensor:
+    """int8 correlation-power map [T, n_lags] times ``inv`` (an f32 power
+    scale, (1 / (128 s_g))^2 to restore capture units), stored as bf16."""
+    _check(cap, taps, n_lags, torch.int8)
+    if cap.device.type == "cpu":
+        return corr_pow_int8_scaled_plain(cap, taps, n_lags, inv)
+    return _launch("pss_corr_int8_scaled", cap, taps,
+                   _map(taps, n_lags, torch.bfloat16), n_lags,
+                   ctypes.c_float(np.float32(inv)))
+
+
+def corr_pow_sum_bf16(cap: torch.Tensor, taps: torch.Tensor,
+                      n_lags: int) -> torch.Tensor:
+    """The sum probe: S [n_rb, n_tc, 8, 16] f32, S[i, j, c, tc] = the sum
+    over the 128 rows r of row block i of p[16 j + tc, 15360 i + 120 r +
+    c] for the bf16 map p, over whole row blocks of lags (the capture
+    zero past its end) and whole chunks of templates (zero taps past T).
+    The TPU probe writes S broadcast over the 8 rows of its (8, 128)
+    output tile and keeps c < 8 because that tile holds 8 sublanes; the
+    port keeps the same selection so that the checksum is the probe's.
+    No power map is written."""
+    _check(cap, taps, n_lags, torch.bfloat16)
+    if cap.device.type == "cpu":
+        return corr_pow_sum_bf16_plain(cap, taps, n_lags)
+    shape = sum_shape(taps.shape[1], n_lags)
+    sums = torch.zeros(shape, dtype=torch.float32, device=cap.device)
+    return _launch("pss_corr_sum_bf16", cap, taps, sums,
+                   shape[0] * SUM_BLOCK_LAGS)

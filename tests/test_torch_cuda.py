@@ -35,9 +35,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launched():
+    """The kernels launched since the last reset, with their counts."""
+    return {k: v for k, v in corr_cuda.LAUNCHES.items() if v}
+
+
 def _operands(precision, n_f, n_cap, seed, device):
     rng = np.random.default_rng(seed)
     tmpl = pss_templates(np.arange(n_f) * 5e3, FC, FC, FS).reshape(-1, 137)
+    if precision == "f32":
+        cap = torch.from_numpy(0.1 * (rng.normal(size=n_cap) + 1j
+                                      * rng.normal(size=n_cap))).to(device)
+        return (corr_cuda.capture_planes_f32(cap),
+                corr_cuda.template_planes_f32(tmpl, device))
     if precision == "int8":
         codes = rng.integers(0, 256, size=(2, n_cap))
         codes[0, ::53] = 255                      # saturated +128 codes
@@ -77,6 +87,87 @@ def test_int8_kernel_is_bit_equal_to_its_plain_version(cuda, n_f, n_cap):
     got = corr_cuda.corr_pow_int8(cap, taps, n_lags)
     ref = corr_cuda.corr_pow_int8_plain(cap, taps, n_lags)
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+RAGGED = [(1, 137 + 5), (3, 9600 + 401), (7, 2 * 9600 + 777)]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n_f,n_cap", RAGGED)
+def test_f32_map_kernels_match_their_plain_version(cuda, precision, n_f,
+                                                   n_cap):
+    """pss_corr_f32 and pss_corr_bf16_f32out: f32 sums of the same
+    operands in another order, within 1e-5 x the map's max."""
+    cap, taps = _operands(precision, n_f, n_cap, 5 + n_f, cuda)
+    n_lags = n_cap - 136
+    corr_cuda.reset_launch_counts()
+    if precision == "f32":
+        got = corr_cuda.corr_pow_f32(cap, taps, n_lags)
+        name = "pss_corr_f32"
+    else:
+        got = corr_cuda.corr_pow_bf16(cap, taps, n_lags, torch.float32)
+        name = "pss_corr_bf16_f32out"
+    torch.cuda.synchronize()
+    assert _launched() == {name: 1}
+    ref = corr_cuda.corr_pow_f32_plain(cap, taps, n_lags)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.max())
+
+
+@pytest.mark.parametrize("n_f,n_cap", RAGGED)
+def test_int8_scaled_kernel_is_bit_equal_to_its_plain_version(cuda, n_f,
+                                                              n_cap):
+    cap, taps = _operands("int8", n_f, n_cap, 8 + n_f, cuda)
+    inv = corr_cuda.probe_inv(pss_templates(np.arange(n_f) * 5e3, FC, FC,
+                                            FS).reshape(-1, 137))
+    got = corr_cuda.corr_pow_int8_scaled(cap, taps, n_cap - 136, inv)
+    ref = corr_cuda.corr_pow_int8_scaled_plain(cap, taps, n_cap - 136, inv)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("n_f,n_cap", RAGGED)
+def test_sum_kernel_matches_its_plain_version(cuda, n_f, n_cap):
+    cap, taps = _operands("bf16", n_f, n_cap, 9 + n_f, cuda)
+    got = corr_cuda.corr_pow_sum_bf16(cap, taps, n_cap - 136)
+    ref = corr_cuda.corr_pow_sum_bf16_plain(cap, taps, n_cap - 136)
+    assert got.shape == ref.shape == corr_cuda.sum_shape(3 * n_f,
+                                                         n_cap - 136)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("t_chunk", [16, 5])
+def test_per_chunk_launches_equal_one_launch(cuda, t_chunk):
+    cap, taps = _operands("bf16", 7, 2 * 9600 + 777, 12, cuda)   # T = 21
+    corr_cuda.reset_launch_counts()
+    got = corr_cuda.corr_pow_bf16_per_chunk(cap, taps, 2 * 9600 + 641,
+                                            t_chunk)
+    want = corr_cuda.corr_pow_bf16(cap, taps, 2 * 9600 + 641)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_bf16_per_chunk": -(-21 // t_chunk),
+                           "pss_corr_bf16": 1}
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_xcorr_core_v1_route_launches_one_kernel(cuda):
+    """The v1 route of xcorr_core on the two-cell capture: one launch of
+    pss_corr_bf16_f32out and nothing else; the strongest peak where the
+    production route puts it."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import (_front_staging,
+                                                         v1_operands,
+                                                         xcorr_core)
+    cap = two_cell_capture()
+    f_set = default_f_search_set(FC, 100.0)
+    cap_t, tmpl, starts, kern, _n = _front_staging(
+        cap, f_set, FC, FC, FS, "auto", cuda, None, True)
+    v1 = v1_operands(tmpl.reshape(-1, 137).cpu().numpy(), "bf16", cuda)
+    corr_cuda.reset_launch_counts()
+    got = xcorr_core(cap_t, None, starts, 2, False, True, v1)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_bf16_f32out": 1}
+    want = xcorr_core(cap_t, None, starts, 2, False, True, kern)
+    assert int(got[2].argmax()) == int(want[2].argmax())
+    assert float((got[2] - want[2]).abs().max()) < 2e-2 * float(
+        want[2].max())
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
@@ -183,9 +274,7 @@ def test_scan_band_on_a_slice_of_the_band(cuda):
     corr_cuda.reset_launch_counts()
     cells = scan_band(part, default_f_search_set(FC, 100.0), FS,
                       device=cuda)
-    assert corr_cuda.LAUNCHES == {"pss_corr_bf16": 0, "pss_corr_int8": 0,
-                                  "pss_corr_fold_bf16": 1,
-                                  "pss_corr_fold_int8": 0}
+    assert _launched() == {"pss_corr_fold_bf16": 1}
     assert [sorted(c.n_id_cell() for c in cl) for cl in cells] == \
         [[], [], sorted(TWO_CELL_TRUTH), [], []]
     for c in cells[2]:
@@ -224,8 +313,6 @@ def test_scan_band_takes_the_v2_route_on_a_wide_chunk(cuda):
     corr_cuda.reset_launch_counts()
     cells = scan_band([(cap, fc, fcp), (noise, fc + 200e6, fcp + 200e6)],
                       default_f_search_set(FC, 100.0), FS, device=cuda)
-    assert corr_cuda.LAUNCHES == {"pss_corr_bf16": 2, "pss_corr_int8": 0,
-                                  "pss_corr_fold_bf16": 0,
-                                  "pss_corr_fold_int8": 0}
+    assert _launched() == {"pss_corr_bf16": 2}
     assert [sorted(c.n_id_cell() for c in cl) for cl in cells] == \
         [sorted(TWO_CELL_TRUTH), []]

@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: they import neither
-JAX nor any module of the TPU package (lte_cell_scanner_tpu)."""
+"""The PyTorch port, its tools (tools_torch/) and chip_smoke.py stand
+alone: they import neither JAX nor any module of the TPU package
+(lte_cell_scanner_tpu)."""
 
 import ast
 import json
@@ -11,6 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "lte_cell_scanner_tpu_torch"
+TOOLS = ROOT / "tools_torch"
 FORBIDDEN = ("jax", "jaxlib", "lte_cell_scanner_tpu")
 
 
@@ -24,8 +26,12 @@ def _package_files():
                   if "build" not in p.relative_to(PKG).parts)
 
 
+def _tool_files():
+    return sorted(TOOLS.glob("*.py"))
+
+
 def _sources():
-    return _package_files() + [ROOT / "chip_smoke.py"]
+    return _package_files() + _tool_files() + [ROOT / "chip_smoke.py"]
 
 
 def test_module_names_are_matched_exactly():
@@ -60,7 +66,9 @@ def test_importing_the_port_loads_no_jax_module():
     mods = sorted("lte_cell_scanner_tpu_torch." + str(
         p.relative_to(PKG).with_suffix("")).replace("/", ".")
         for p in _package_files() if p.name != "__init__.py") \
-        + ["lte_cell_scanner_tpu_torch"]
+        + ["lte_cell_scanner_tpu_torch"] \
+        + ["tools_torch." + p.stem for p in _tool_files()]
+    assert "tools_torch.bench_kernels" in mods
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
