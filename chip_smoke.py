@@ -42,14 +42,17 @@ Phases, each fatal on failure:
      rulers, printed beside the data-sheet peaks) and
      ``tools_torch/bench_kernels.py`` (timings, then --parity-only), each
      line printed;
-  6. kernel phase at full width for the fused v4 kernels: C = 64 carriers
-     (one chunk), T = 93, n_comb = 15, staged by the band scan's own
-     planning from the first 64 carriers of ``band_captures`` (float band
-     for bf16, ADC-grid band for int8; the host seconds of each staging
-     step printed): each kernel against its plain
-     version (int8 bit-equal, bf16 within 1e-5 x max), timed beside its
-     plain version and a cuDNN bf16 conv1d yardstick over the 64-carrier
-     stack (the correlation only, without |.|^2 and the fold);
+  6. kernel phase at full width for the fused v4 kernels (tensor-core
+     mma.sync): C = 64 carriers (one chunk), T = 93, n_comb = 15, staged
+     by the band scan's own planning from the first 64 carriers of
+     ``band_captures`` (float band for bf16, ADC-grid band for int8; the
+     host seconds of each staging step printed): each kernel against its
+     plain version (int8 bit-equal, bf16 within 1e-5 x max), timed beside
+     its plain version and a cuDNN bf16 conv1d yardstick over the
+     64-carrier stack (the correlation only, without |.|^2 and the fold);
+     its useful TF/s (TOPS), their share of the data-sheet peak and of
+     this card's tensor-core ruler from phase 5b, and the ptxas register
+     and spill lines of ``pss_corr_fold.cu`` (any spill fails);
   7. band-scan path: ``scan_band`` over the 101-carrier 10 MHz band
      (chunks of 64 + 37), float band and ADC-grid band; launch counts
      zeroed just before and read just after each run: exactly 2 launches
@@ -148,7 +151,9 @@ def phase_card() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every source; returns nvcc's output (with ptxas' report) by
+    source name."""
     from lte_cell_scanner_tpu_torch.cuda_build import SOURCES, build
     t0 = time.perf_counter()
     # one nvcc per source, all started together
@@ -160,6 +165,27 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {line.strip()}")
     print(f"build phase: {time.perf_counter() - t0:.2f} s")
+    return {name: log for name, (_secs, log) in builds}
+
+
+def fold_ptxas(log: str) -> dict:
+    """ptxas' register and spill lines for each fused kernel, by
+    precision; fails on any spill."""
+    lines = {}
+    name = None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = "int8" if "Int8" in line else "bf16"
+        elif name and ("registers" in line or "spill" in line):
+            lines.setdefault(name, []).append(
+                line.replace("ptxas info    : ", ""))
+            if "spill" in line and not (" 0 bytes spill stores" in line
+                                        and " 0 bytes spill loads" in line):
+                fail(f"pss_corr_fold.cu ({name}) spills: {line}")
+    if set(lines) != {"bf16", "int8"}:
+        fail(f"no ptxas report for both fused kernels: {sorted(lines)}")
+    return {k: "; ".join(v) for k, v in lines.items()}
 
 
 def kernel_operands(capbuf: np.ndarray, f_set: np.ndarray):
@@ -429,10 +455,11 @@ def run_tool(label: str, main, argv) -> dict:
     return json.loads(out.splitlines()[-1])
 
 
-def phase_benches(counts: dict) -> None:
+def phase_benches(counts: dict) -> dict:
     """The kernel benches at full width, launch counts zeroed before and
     read after each: bench_corr_v2 (the TPU tool's variants and the
-    card's tensor-core rulers), bench_kernels (timing, then parity)."""
+    card's tensor-core rulers, returned: TF/s bf16, TOPS int8),
+    bench_kernels (timing, then parity)."""
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     from tools_torch import bench_corr_v2, bench_kernels
 
@@ -460,6 +487,7 @@ def phase_benches(counts: dict) -> None:
     for launched in runs:
         for k, v in launched.items():
             counts[k] = counts.get(k, 0) + v
+    return {"bf16": res["peak_bf16_tflops"], "int8": res["peak_int8_tops"]}
 
 
 def expect_cells(cells, label: str) -> None:
@@ -617,16 +645,21 @@ def band_operands(band, f_set):
     return route, corr_cuda.capture_planes_bf16(cap_t)
 
 
+def fold_ops(planes, taps, starts) -> float:
+    """Useful operations of one fused launch: 8 per tap, template,
+    fold-output lag, period and carrier (one complex multiply-add is 4
+    real ones)."""
+    return 8.0 * planes.shape[0] * taps.shape[1] * 9600 * starts.shape[1] \
+        * taps.shape[2]
+
+
 def fold_bound(precision: str, planes, taps, starts):
-    """(bound_ms, bound_by) of one fused launch: 8 operations per tap,
-    template, fold-output lag, period and carrier (one complex
-    multiply-add is 4 real ones) over the tensor-core peak of the operand
-    type, against the inputs read once and the f32 output written once
-    over HBM bandwidth."""
+    """(bound_ms, bound_by) of one fused launch: the useful operations
+    over the tensor-core peak of the operand type, against the inputs read
+    once and the f32 output written once over HBM bandwidth."""
     n_c = planes.shape[0]
     n_t = taps.shape[1]
-    n_comb = starts.shape[1]
-    ops = 8.0 * n_c * n_t * 9600 * n_comb * taps.shape[2]
+    ops = fold_ops(planes, taps, starts)
     in_bytes = sum(x.numel() * x.element_size()
                    for x in (planes, taps, starts))
     out_bytes = n_c * n_t * 9600 * 4
@@ -647,7 +680,8 @@ def fold_library_call(planes, taps):
     return lambda: torch.nn.functional.conv1d(x, w)
 
 
-def check_fold_kernel(precision: str, route, planes) -> dict:
+def check_fold_kernel(precision: str, route, planes, ruler: float,
+                      ptxas: str) -> dict:
     from lte_cell_scanner_tpu_torch.ops import corr_fold_cuda
     wrapper = corr_fold_cuda.corr_fold_int8 if precision == "int8" \
         else corr_fold_cuda.corr_fold_bf16
@@ -678,8 +712,8 @@ def check_fold_kernel(precision: str, route, planes) -> dict:
              "1e-5 x max")
     del got, ref, err
 
-    ms = time_cuda(lambda: wrapper(planes, taps, starts), reps=5, per_rep=2,
-                   warmup=1)
+    ms = time_cuda(lambda: wrapper(planes, taps, starts), reps=10,
+                   per_rep=5, warmup=2)
     plain_ms = time_cuda(lambda: plain(planes, taps, starts), reps=3,
                          per_rep=1, warmup=1)
     library_ms = time_cuda(fold_library_call(planes, taps), reps=3,
@@ -689,11 +723,20 @@ def check_fold_kernel(precision: str, route, planes) -> dict:
           f"launch ({ms / shape[0]:.4f} ms per carrier); plain "
           f"{plain_ms:.4f} ms; library conv1d (correlation only) "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    useful = fold_ops(planes, taps, starts) / (ms * 1e-3) / 1e12
+    peak = PEAK_OPS[precision] / 1e12
+    unit = "TOPS" if precision == "int8" else "TF/s"
+    print(f"v4 {precision} kernel: {useful:.1f} useful {unit}, "
+          f"{100.0 * useful / peak:.1f}% of the data-sheet {peak:.0f}, "
+          f"{100.0 * useful / ruler:.1f}% of this card's ruler "
+          f"{ruler:.1f} (bench_corr_v2 peak)")
+    print(f"v4 {precision} kernel: ptxas {ptxas}")
     return {"name": f"pss_corr_fold_{precision}", "route": "cuda",
             "source": FOLD_SOURCE, "replaces": FOLD_REPLACES[precision],
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "useful_tflops": useful,
+            "share_of_peak": useful / peak, "share_of_ruler": useful / ruler}
 
 
 def expect_band(cell_lists, band, label: str) -> None:
@@ -792,7 +835,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32: matmul off, cudnn off")
-    phase_build()
+    logs = phase_build()
+    ptxas = fold_ptxas(logs["pss_corr_fold"])
 
     f_set = default_f_search_set(FC, PPM)
     cap_float = two_cell_capture(seed=0, f_off=35e3, fc=FC)
@@ -823,7 +867,7 @@ def main() -> int:
         cap_float, f_set, FC, FC, FS_WORK, device="cuda"))
     ab_counts = {}
     run_ab_path(cap_float, f_set, ab_counts)
-    phase_benches(ab_counts)
+    rulers = phase_benches(ab_counts)
 
     t0 = time.perf_counter()
     band_float, band_adc = band_captures()
@@ -836,7 +880,8 @@ def main() -> int:
         if route.kern.precision != precision:
             fail(f"band staging picked {route.kern.precision} for the "
                  f"{precision} band")
-        fold_records[precision] = check_fold_kernel(precision, route, planes)
+        fold_records[precision] = check_fold_kernel(
+            precision, route, planes, rulers[precision], ptxas[precision])
         del route, planes
         torch.cuda.empty_cache()
 

@@ -1,6 +1,7 @@
 """Fused PSS correlation + k_factor fold kernels (CUDA,
-``csrc/pss_corr_fold.cu``), their plain PyTorch versions, and the host
-gate that routes a band scan to them.
+``csrc/pss_corr_fold.cu``), their plain PyTorch versions, the operand
+packing the kernels read, and the host gate that routes a band scan to
+them.
 
 The counterpart of the TPU package's v4 route
 (``ops/corr_pallas.py::corr_fold_core_v4``): for C carriers sharing one
@@ -14,19 +15,30 @@ for l in [0, 9600), x reading as zero outside the capture.  The caller
 multiplies by f32(1 / n_comb), times the int8 power scale.
 
 - ``corr_fold_bf16`` replaces ``_corr_kernel_v4``: bf16 operands, f32
-  products and sums.
+  products and sums (``mma.sync`` m16n8k16 bf16 -> f32).
 - ``corr_fold_int8`` replaces ``_corr_kernel_v4_int8``: int8 operands
-  (the quantizers of ``ops/corr_cuda.py``), int32 period sums cast to f32
-  before squaring.
+  (the quantizers of ``ops/corr_cuda.py``), exact int32 period sums
+  (``mma.sync`` m16n8k32 s8 -> s32) cast to f32 before squaring.
 
 Each period's power is fma(re, re, im * im), one rounding for the sum,
 as the TPU kernel's ``xr * xr + xi * xi`` is contracted where the TPU
 package's tests run it (the Pallas interpreter); the int8 route then
 equals the interpreted TPU kernel bit for bit.
 
+The kernels compute each hypothesis's correlation as a real product on
+the tensor cores: a Hankel A [lag, 288] of the capture (K interleaves Re
+and Im of 144 taps, the last 7 zero) times B [288, 8] holding Re and Im
+columns of the hypothesis's three PSS (columns 6-7 zero), 71% of it
+useful work.  The wrapper builds both operands before the launch:
+``pack_fold_taps`` (B, column-major, as the kernel's fragments read it)
+and ``capture_words`` (one 32-bit word per sample, the layout the kernel
+stages with 16-byte ``cp.async`` copies).  Both are part of each wrapper
+call.
+
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
-error) and takes the plain version only for CPU tensors; launches count
-in ``corr_cuda.LAUNCHES``.
+error, and with a ``ValueError`` before the launch when the start table
+spreads past what a block stages) and takes the plain version only for
+CPU tensors; launches count in ``corr_cuda.LAUNCHES``.
 
 The host gate (``v4_kv_for`` and its helpers, numpy copies of the TPU
 package's) decides between this fused route and the v2 kernels with the
@@ -48,9 +60,16 @@ from . import corr_cuda
 W_V4 = 80                # lags per row of the TPU kernel
 KV_V2 = 256              # its default row window
 KV_V4_WIDE = 384         # its wide row window (long captures)
-_HYP_PER_BLOCK = 4       # hypotheses per CUDA block (csrc kThreadsY)
-_SPAN_BASE = 256 + PSS_TD_LEN - 1     # one lag tile's capture span
-_SPAN_MAX = 4096         # capture span the 48 KB of shared memory holds
+# the CUDA kernel's block (csrc/pss_corr_fold.cu: kWarps, kTileLags,
+# kTapsPad, kGuard)
+_HYP_PER_BLOCK = 4       # hypotheses per block, one per warp
+_TILE_LAGS = 256         # fold-output lags per block
+TAPS_PAD = 144           # taps per template on the K axis (7 zero)
+_GUARD = 4               # staged words before sample 0
+# a block's span at zero start spread: 256 lags + 143 taps, and up to 3
+# words that align its first 16-byte copy
+_SPAN_BASE = 3 + _TILE_LAGS + TAPS_PAD - 1
+_SPAN_MAX = 4096         # words per span: two spans in 32 KB of shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +162,51 @@ def corr_fold_int8_plain(cap: torch.Tensor, taps: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Kernel operands
+# ---------------------------------------------------------------------------
+
+def pack_fold_taps(taps: torch.Tensor) -> torch.Tensor:
+    """Template planes [2, 3 n_f, 137] (bf16 or int8) -> the kernel's B
+    operand [n_f, 8, 288] of the same type: for hypothesis f, column n and
+    K index 2k + c (tap k < 144, c = 0 for the capture's Re, 1 for its
+    Im), column 2p is Re and column 2p + 1 is Im of PSS p:
+
+        B[f, 2p, 2k] = tr,  B[f, 2p, 2k + 1] = -ti,
+        B[f, 2p + 1, 2k] = ti,  B[f, 2p + 1, 2k + 1] = tr
+
+    of template p n_f + f.  Columns 6-7 and taps 137-143 are zero.  Each
+    column is contiguous (the "col" B of ``mma.sync``), so one fragment
+    register is one aligned 32-bit load.  The int8 taps are clipped to
+    +-127, so the negation is exact."""
+    n_f = taps.shape[1] // 3
+    tr = taps[0].reshape(3, n_f, PSS_TD_LEN).transpose(0, 1)   # [f, p, k]
+    ti = taps[1].reshape(3, n_f, PSS_TD_LEN).transpose(0, 1)
+    b = taps.new_zeros((n_f, 4, 2, TAPS_PAD, 2))     # [f, p, re/im col, k, c]
+    b[:, :3, 0, :PSS_TD_LEN, 0] = tr
+    b[:, :3, 0, :PSS_TD_LEN, 1] = -ti
+    b[:, :3, 1, :PSS_TD_LEN, 0] = ti
+    b[:, :3, 1, :PSS_TD_LEN, 1] = tr
+    return b.reshape(n_f, 8, 2 * TAPS_PAD)
+
+
+def capture_words(cap: torch.Tensor) -> torch.Tensor:
+    """Capture planes [C, 2, n] -> the words the kernel stages, one
+    32-bit word per sample, with 4 zero words before sample 0 and zeros
+    past the capture up to a whole number of 16-byte chunks.  Word j of
+    bf16 [C, n_w, 2] holds (Re, Im) of sample j - 4; word j of int8
+    [C, n_w, 4] holds (Re, Im) of samples j - 4 and j - 3, the two
+    consecutive taps' worth that one m16n8k32 A register takes."""
+    n_c, _, n_cap = cap.shape
+    n_w = -(-(n_cap + _GUARD) // 4) * 4
+    pair = cap.dtype == torch.int8
+    x = cap.new_zeros((n_c, n_w + pair, 2))
+    x[:, _GUARD:_GUARD + n_cap] = cap.transpose(1, 2)
+    if pair:
+        return torch.cat([x[:, :-1], x[:, 1:]], dim=2)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
@@ -190,8 +254,9 @@ def _check(cap: torch.Tensor, taps: torch.Tensor, starts: torch.Tensor,
 
 
 def _span_capacity(starts: torch.Tensor) -> int:
-    """Capture samples one block stages per period: a lag tile's span
-    plus the largest start spread over the hypotheses of any block."""
+    """Words one block stages per period (a multiple of 4): a lag
+    tile's span plus the largest start spread over the hypotheses of any
+    block.  Raises ValueError past the kernel's ``_SPAN_MAX``."""
     n_f, n_comb = starts.shape
     pad = -n_f % _HYP_PER_BLOCK
     st = starts.to(torch.int64)
@@ -199,7 +264,7 @@ def _span_capacity(starts: torch.Tensor) -> int:
         st = torch.cat([st, st[-1:].expand(pad, n_comb)])
     st = st.reshape(-1, _HYP_PER_BLOCK, n_comb)
     spread = int((st.amax(dim=1) - st.amin(dim=1)).max())
-    span = _SPAN_BASE + spread
+    span = -(-(_SPAN_BASE + spread) // 4) * 4
     if span > _SPAN_MAX:
         raise ValueError(f"fold starts spread over {spread} samples within "
                          f"{_HYP_PER_BLOCK} hypotheses; the kernel stages "
@@ -211,17 +276,19 @@ def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
             starts: torch.Tensor) -> torch.Tensor:
     if cap.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {cap.device}")
-    n_c, _, n_cap = cap.shape
+    n_c = cap.shape[0]
     n_f, n_comb = starts.shape
     span = _span_capacity(starts)
+    words = capture_words(cap)
+    b = pack_fold_taps(taps)
     out = torch.empty((n_c, taps.shape[1], HALF_FRAME_LEN),
                       dtype=torch.float32, device=cap.device)
     with torch.cuda.device(cap.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_kernels(), name)(
-            cap.data_ptr(), taps.data_ptr(), starts.data_ptr(),
-            out.data_ptr(), int(n_c), int(n_cap), int(n_f), int(n_comb),
-            int(span), stream)
+            words.data_ptr(), b.data_ptr(), starts.data_ptr(),
+            out.data_ptr(), int(n_c), int(words.shape[1]), int(n_f),
+            int(n_comb), int(span), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     corr_cuda.LAUNCHES[name] += 1

@@ -214,14 +214,27 @@ def test_saturated_peak_records_fall_back_on_the_card(cuda, monkeypatch):
 
 def _fold_operands(precision, case, n_c, device):
     """C captures of 3 x 9600 + 400 samples with a fold-start table: the
-    +-75 kHz grid (real deltas of both signs, T = 21) or a synthetic +-60
-    table (the TPU's wide window, T = 15)."""
+    +-75 kHz grid (real deltas of both signs, T = 21), a synthetic +-60
+    table (the TPU's wide window, T = 15), the production +-100 ppm grid
+    at 739 MHz (T = 93, n_f = 31 not a multiple of the block's 4
+    hypotheses), or a table whose start spread within one block of
+    hypotheses is the widest the kernel stages (T = 15), with starts
+    before the capture and reads past its end."""
     rng = np.random.default_rng(7 + n_c)
     n_cap = 3 * 9600 + 400
     if case == "grid":
         f_set = np.arange(-75e3, 75e3 + 1, 25e3)
         starts = combine_start_indices(f_set, FC, FC, FS, 3)
         assert starts.min() == 0 and (starts - 9600 * np.arange(3)).min() < 0
+    elif case == "production":
+        f_set = default_f_search_set(FC, 100.0)
+        starts = combine_start_indices(f_set, FC, FC, FS, 3)
+    elif case == "limit":
+        f_set = np.arange(-10e3, 10e3 + 1, 5e3)
+        starts = 9600 * np.arange(3)[None, :].repeat(len(f_set), axis=0)
+        starts[0, 0] = -40
+        starts[1, 1] += corr_fold_cuda._SPAN_MAX - corr_fold_cuda._SPAN_BASE
+        starts[3, 2] += 300
     else:
         f_set = np.arange(-10e3, 10e3 + 1, 5e3)
         deltas = rng.integers(-60, 61, size=(len(f_set), 3))
@@ -241,9 +254,14 @@ def _fold_operands(precision, case, n_c, device):
             corr_cuda.template_planes_bf16(tmpl, device), starts)
 
 
-# ragged carrier counts, T = 21 and 15 (not multiples of the kernel's 12
-# templates per block or of the TPU's 16), deltas of both signs, +-60
-@pytest.mark.parametrize("case,n_c", [("grid", 3), ("wide", 5)])
+# ragged carrier counts (1 and 37: the band's second chunk), T = 21, 15
+# and 93 (not multiples of the kernel's 12 templates per block or of the
+# TPU's 16), deltas of both signs, +-60, and the widest staged spread
+FOLD_CASES = [("grid", 3), ("wide", 5), ("production", 1),
+              ("production", 37), ("limit", 2)]
+
+
+@pytest.mark.parametrize("case,n_c", FOLD_CASES)
 def test_bf16_fold_kernel_matches_its_plain_version(cuda, case, n_c):
     cap, taps, starts = _fold_operands("bf16", case, n_c, cuda)
     before = corr_cuda.LAUNCHES["pss_corr_fold_bf16"]
@@ -256,12 +274,27 @@ def test_bf16_fold_kernel_matches_its_plain_version(cuda, case, n_c):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.max())
 
 
-@pytest.mark.parametrize("case,n_c", [("grid", 3), ("wide", 5)])
+@pytest.mark.parametrize("case,n_c", FOLD_CASES)
 def test_int8_fold_kernel_is_bit_equal_to_its_plain_version(cuda, case, n_c):
     cap, taps, starts = _fold_operands("int8", case, n_c, cuda)
     got = corr_fold_cuda.corr_fold_int8(cap, taps, starts)
     ref = corr_fold_cuda.corr_fold_int8_plain(cap, taps, starts)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_fold_kernel_refuses_a_spread_past_its_span(cuda, precision):
+    """One sample more spread than the kernel stages: ValueError before
+    any launch."""
+    cap, taps, starts = _fold_operands(precision, "limit", 1, cuda)
+    starts[1, 1] += 1
+    wrapper = corr_fold_cuda.corr_fold_int8 if precision == "int8" \
+        else corr_fold_cuda.corr_fold_bf16
+    corr_cuda.reset_launch_counts()
+    with pytest.raises(ValueError):
+        wrapper(cap, taps, starts)
+    torch.cuda.synchronize()
+    assert _launched() == {}
 
 
 def test_scan_band_on_a_slice_of_the_band(cuda):

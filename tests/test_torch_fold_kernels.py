@@ -131,6 +131,95 @@ def test_int8_taps_equal_the_pallas_v4_band_entries():
         assert not rest.any()
 
 
+def _hankel_fold(words, packed, starts):
+    """The CUDA kernel's arithmetic on its own operands, in float64: for
+    each carrier, hypothesis f and period m, the Hankel matrix A[l, 2k + c]
+    read from the staged words at sample s[f, m] + l + k (word s + 4; bf16:
+    one word per tap, int8: one word per pair of taps) times the packed B
+    [288, 8]; then each period's power fma(re, re, im * im) and the f32
+    fold in period order."""
+    n_c, n_w, per_word = words.shape
+    n_f, n_comb = starts.shape
+    step = per_word // 2                     # samples per word
+    lo = min(0, int(starts.min()))
+    hi = int(starts.max()) + 9600 + tf.TAPS_PAD
+    # the kernel reads zeros outside the staged words
+    pad = torch.zeros((n_c, max(hi + 4, n_w) - lo, per_word),
+                      dtype=torch.float64)
+    pad[:, -lo: n_w - lo] = words.double()
+    b = packed.double()
+    out = torch.zeros((n_c, 3 * n_f, 9600), dtype=torch.float32)
+    for c in range(n_c):
+        hank = pad[c].unfold(0, tf.TAPS_PAD, 1)[..., ::step] \
+            .permute(0, 2, 1).reshape(-1, 2 * tf.TAPS_PAD)
+        for f in range(n_f):
+            for m in range(n_comb):
+                row = int(starts[f, m]) + 4 - lo
+                ab = hank[row: row + 9600] @ b[f].T          # [9600, 8]
+                re = ab[:, 0:6:2].float().T
+                im = ab[:, 1:6:2].float().T
+                p = (re.double() * re.double() + (im * im).double()).float()
+                out[c, f::n_f] += p
+    return out
+
+
+@pytest.mark.parametrize("case", ["grid", "wide"])
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_packed_operands_reproduce_the_plain_fold(precision, case):
+    """pack_fold_taps and capture_words are what the CUDA kernel reads:
+    the Hankel product of the two in float64, with the kernel's epilogue
+    and fold, equals the int8 plain version and is within 1e-6 x max of
+    the bf16 one."""
+    n_cap = 3 * 9600 + 400
+    f_set, starts = _starts(case, n_cap)
+    tmpl = _templates(f_set)
+    st = torch.from_numpy(starts.astype(np.int32))
+    if precision == "int8":
+        cap = tc.capture_planes_int8(torch.from_numpy(_grid_band(3, 2, n_cap)))
+        taps, _scale = tc.template_planes_int8(tmpl, CPU)
+        ref = tf.corr_fold_int8_plain(cap, taps, st)
+    else:
+        rng = np.random.default_rng(4)
+        x = 0.1 * (rng.normal(size=(2, n_cap))
+                   + 1j * rng.normal(size=(2, n_cap)))
+        cap = tc.capture_planes_bf16(torch.from_numpy(x))
+        taps = tc.template_planes_bf16(tmpl, CPU)
+        ref = tf.corr_fold_bf16_plain(cap, taps, st)
+    words = tf.capture_words(cap)
+    packed = tf.pack_fold_taps(taps)
+    assert packed.dtype == taps.dtype
+    assert packed.shape == (len(f_set), 8, 2 * tf.TAPS_PAD)
+    assert not packed[:, 6:].any() and not packed[..., 2 * 137:].any()
+    assert words.dtype == cap.dtype and words.shape[1] % 4 == 0
+    assert words.shape[1] >= n_cap + 4
+    assert words.shape[2] == (4 if precision == "int8" else 2)
+    got = _hankel_fold(words, packed, starts)
+    if precision == "int8":
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
+
+
+def test_span_capacity_follows_the_kernel_block():
+    """Words a block stages: 402 at zero spread (256 lags, 143 taps, 3
+    words of alignment), plus the widest start spread within any 4
+    consecutive hypotheses, in whole 16-byte chunks, up to 4096; past it
+    the wrapper raises before any launch."""
+    base = 9600 * np.arange(3)[None, :].repeat(9, axis=0)
+    assert tf._span_capacity(torch.from_numpy(base.astype(np.int32))) == 404
+    spread = base.copy()
+    spread[4, 1] += 50          # second block of hypotheses
+    spread[8, 2] -= 7           # a block of one (n_f = 9)
+    assert tf._span_capacity(torch.from_numpy(spread.astype(np.int32))) == 452
+    limit = tf._SPAN_MAX - tf._SPAN_BASE
+    spread[5, 2] += limit
+    assert tf._span_capacity(torch.from_numpy(spread.astype(np.int32))) \
+        == tf._SPAN_MAX
+    spread[5, 2] += 1
+    with pytest.raises(ValueError):
+        tf._span_capacity(torch.from_numpy(spread.astype(np.int32)))
+
+
 @pytest.mark.parametrize("ms,ppm,kv", [(80, 100.0, 256), (160, 200.0, 384),
                                        (320, 300.0, 0)])
 def test_v4_gate_matches_tpu_package(ms, ppm, kv):
