@@ -6,14 +6,20 @@ Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel from ``lte_cell_scanner_tpu_torch/csrc``
      with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
-     sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``), all started
-     together;
-  3. kernel phase at full width for the v2 kernels (T = 93 templates:
-     +-100 ppm at 739 MHz; one 80 ms capture of 153600 samples): each
-     kernel against its plain PyTorch version on the same inputs, then
-     timed (CUDA events, median of 20 windows of 10 calls after warm-up)
-     beside its plain version and a library yardstick, and its bound
-     computed from this run's inputs;
+     sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
+     ``hankel_mma.cuh``), all started together; the ptxas register and
+     spill lines of the four tensor-core kernel instances (any spill
+     fails);
+  3. kernel phase at full width for the v2 kernels (tensor-core mma.sync;
+     T = 93 templates: +-100 ppm at 739 MHz; one 80 ms capture of 153600
+     samples) on the main path's operands (taps packed once): each kernel
+     against its plain PyTorch version on the same inputs (int8
+     bit-equal, bf16 within one bf16 step + 1e-5 x max), then timed (CUDA
+     events, median of 20 windows of 10 calls after warm-up) as the
+     wrapper call and as the bare launch on capture words built once,
+     beside its plain version and a library yardstick; its bound computed
+     from this run's inputs, its useful TF/s (TOPS) and their share of the
+     data-sheet peak (the share of this card's ruler follows at phase 9);
   3b. kernel phase at the same width for the correlation A/B path's
      kernels: pss_corr_f32 (v1/v2 with f32 bands) and
      pss_corr_bf16_f32out (v1 with bf16 bands, v3) on the float capture
@@ -51,8 +57,8 @@ Phases, each fatal on failure:
      its plain version and a cuDNN bf16 conv1d yardstick over the
      64-carrier stack (the correlation only, without |.|^2 and the fold);
      its useful TF/s (TOPS), their share of the data-sheet peak and of
-     this card's tensor-core ruler from phase 5b, and the ptxas register
-     and spill lines of ``pss_corr_fold.cu`` (any spill fails);
+     this card's tensor-core ruler from phase 5b, and their ptxas register
+     and spill lines;
   7. band-scan path: ``scan_band`` over the 101-carrier 10 MHz band
      (chunks of 64 + 37), float band and ADC-grid band; launch counts
      zeroed just before and read just after each run: exactly 2 launches
@@ -66,7 +72,8 @@ Phases, each fatal on failure:
      total; median of 3 more runs, each stage synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
-  9. one JSON line of kernel records (all nine: the four above and the
+  9. the v2 kernels' useful rates against this card's rulers of phase
+     5b; one JSON line of kernel records (all nine: the four above and the
      five of the A/B path, whose launches are those of phase 5b), then
      the result line.
 
@@ -110,6 +117,7 @@ BENCH_REPEATS = "5"
 FOLD_REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:774",
                  "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:792"}
 CHUNK = 64                 # carriers per band-scan chunk (scan_band default)
+UNIT = {"bf16": "TF/s", "int8": "TOPS"}
 BF16_RTOL = 2.0 ** -7      # one bf16 ulp relative to the value
 BF16_ATOL_REL = 1e-5       # x the map's max, where Re/Im cancel
 
@@ -168,23 +176,27 @@ def phase_build() -> dict:
     return {name: log for name, (_secs, log) in builds}
 
 
-def fold_ptxas(log: str) -> dict:
-    """ptxas' register and spill lines for each fused kernel, by
-    precision; fails on any spill."""
+def tc_ptxas(log: str, kernel: str, source: str) -> dict:
+    """ptxas' register and spill lines of the two instances (bf16, int8)
+    of the tensor-core kernel template ``kernel`` in ``source``'s build
+    log, by precision; fails on any spill."""
     lines = {}
     name = None
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            name = "int8" if "Int8" in line else "bf16"
+            name = None
+            if kernel in line:
+                name = "int8" if "Int8" in line else "bf16"
         elif name and ("registers" in line or "spill" in line):
             lines.setdefault(name, []).append(
                 line.replace("ptxas info    : ", ""))
             if "spill" in line and not (" 0 bytes spill stores" in line
                                         and " 0 bytes spill loads" in line):
-                fail(f"pss_corr_fold.cu ({name}) spills: {line}")
+                fail(f"{source} {kernel} ({name}) spills: {line}")
     if set(lines) != {"bf16", "int8"}:
-        fail(f"no ptxas report for both fused kernels: {sorted(lines)}")
+        fail(f"no ptxas report for both {kernel} instances: "
+             f"{sorted(lines)}")
     return {k: "; ".join(v) for k, v in lines.items()}
 
 
@@ -236,13 +248,21 @@ def library_call(cap_q, taps, n_lags: int, dtype=torch.bfloat16):
     return run
 
 
-def check_kernel(precision: str, kern, cap_q, n_lags: int) -> dict:
+def check_kernel(precision: str, kern, cap_q, n_lags: int,
+                 ptxas: str) -> dict:
+    """The tensor-core map kernel of ``precision`` on the main path's
+    operands (the taps packed once by KernelOperands) against its plain
+    version, then timed: the wrapper (capture words built per call), the
+    bare launch on words built once, the plain version and the library
+    yardstick; its bound and useful rate."""
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     wrapper = corr_cuda.corr_pow_int8 if precision == "int8" \
         else corr_cuda.corr_pow_bf16
     plain = corr_cuda.corr_pow_int8_plain if precision == "int8" \
         else corr_cuda.corr_pow_bf16_plain
-    got = wrapper(cap_q, kern.taps, n_lags)
+    name = f"pss_corr_{precision}"
+    n_t = kern.taps.shape[1]
+    got = wrapper(cap_q, kern.taps, n_lags, packed=kern.packed)
     torch.cuda.synchronize()
     ref = plain(cap_q, kern.taps, n_lags)
     if got.shape != ref.shape or got.dtype != torch.bfloat16:
@@ -271,18 +291,35 @@ def check_kernel(precision: str, kern, cap_q, n_lags: int) -> dict:
         if n_bad:
             fail("bf16 kernel disagrees with its plain version")
 
-    ms = time_cuda(lambda: wrapper(cap_q, kern.taps, n_lags))
+    del got, ref, g, r, err
+    ms = time_cuda(lambda: wrapper(cap_q, kern.taps, n_lags,
+                                   packed=kern.packed))
+    words = corr_cuda.capture_words(cap_q[None])[0]
+    out = torch.empty((n_t, n_lags), dtype=torch.bfloat16, device="cuda")
+    bare_ms = time_cuda(lambda: corr_cuda._launch_tc(
+        name, words, kern.packed, out, n_t, n_lags))
     plain_ms = time_cuda(lambda: plain(cap_q, kern.taps, n_lags))
     library_ms = time_cuda(library_call(cap_q, kern.taps, n_lags))
     bound_ms, bound_by = bound(precision, cap_q, kern.taps, n_lags)
-    print(f"{precision} kernel: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"library conv1d {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return {"name": f"pss_corr_{precision}", "route": "cuda",
+    print(f"{precision} kernel: wrapper {ms:.4f} ms, bare launch "
+          f"{bare_ms:.4f} ms; plain {plain_ms:.4f} ms; library conv1d "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    ops = 8.0 * n_t * n_lags * kern.taps.shape[2]
+    useful = ops / (ms * 1e-3) / 1e12
+    bare = ops / (bare_ms * 1e-3) / 1e12
+    peak = PEAK_OPS[precision] / 1e12
+    print(f"{precision} kernel: {useful:.1f} useful {UNIT[precision]} "
+          f"(wrapper), {bare:.1f} (bare launch): {100.0 * useful / peak:.1f}"
+          f"% and {100.0 * bare / peak:.1f}% of the data-sheet {peak:.0f}; "
+          f"shares of this card's ruler at the end")
+    print(f"{precision} kernel: ptxas {ptxas}")
+    return {"name": name, "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES[precision],
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "bare_ms": bare_ms,
+            "useful_tflops": useful, "bare_useful_tflops": bare,
+            "share_of_peak": useful / peak}
 
 
 def ab_operands(cap_float, cap_adc, f_set):
@@ -725,8 +762,7 @@ def check_fold_kernel(precision: str, route, planes, ruler: float,
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     useful = fold_ops(planes, taps, starts) / (ms * 1e-3) / 1e12
     peak = PEAK_OPS[precision] / 1e12
-    unit = "TOPS" if precision == "int8" else "TF/s"
-    print(f"v4 {precision} kernel: {useful:.1f} useful {unit}, "
+    print(f"v4 {precision} kernel: {useful:.1f} useful {UNIT[precision]}, "
           f"{100.0 * useful / peak:.1f}% of the data-sheet {peak:.0f}, "
           f"{100.0 * useful / ruler:.1f}% of this card's ruler "
           f"{ruler:.1f} (bench_corr_v2 peak)")
@@ -836,7 +872,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32: matmul off, cudnn off")
     logs = phase_build()
-    ptxas = fold_ptxas(logs["pss_corr_fold"])
+    ptxas = tc_ptxas(logs["pss_corr_fold"], "pss_corr_fold_kernel",
+                     "pss_corr_fold.cu")
+    map_ptxas = tc_ptxas(logs["pss_corr"], "map_tc_kernel", "pss_corr.cu")
 
     f_set = default_f_search_set(FC, PPM)
     cap_float = two_cell_capture(seed=0, f_off=35e3, fc=FC)
@@ -853,7 +891,9 @@ def main() -> int:
         if kern.precision != precision:
             fail(f"staging picked {kern.precision} for the {precision} "
                  f"capture")
-        records[precision] = check_kernel(precision, kern, cap_q, n_lags)
+        records[precision] = check_kernel(precision, kern, cap_q, n_lags,
+                                          map_ptxas[precision])
+        del kern, cap_q
     ab_records = check_ab_kernels(ab_operands(cap_float, cap_adc, f_set),
                                   n_lags)
     torch.cuda.empty_cache()
@@ -892,6 +932,15 @@ def main() -> int:
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
+    for precision, rec in records.items():
+        ruler = rulers[precision]
+        rec["share_of_ruler"] = rec["useful_tflops"] / ruler
+        print(f"{rec['name']}: {rec['useful_tflops']:.1f} useful "
+              f"{UNIT[precision]} (wrapper), "
+              f"{rec['bare_useful_tflops']:.1f} (bare launch): "
+              f"{100.0 * rec['share_of_ruler']:.1f}% and "
+              f"{100.0 * rec['bare_useful_tflops'] / ruler:.1f}% of this "
+              f"card's ruler {ruler:.1f} (bench_corr_v2 peak)")
     kernels = []
     for rec in (records["bf16"], records["int8"], fold_records["bf16"],
                 fold_records["int8"]):

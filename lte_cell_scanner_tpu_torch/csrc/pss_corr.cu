@@ -8,10 +8,13 @@
 //
 // Entry points (what each TPU kernel computes, not its blocking):
 //   pss_corr_bf16          _corr_kernel_v2 (:407) and _corr_kernel_v3
-//                          (:429) with bf16 output: bf16 planes, f32
+//                          (:429) with bf16 output: bf16 operands, f32
 //                          accumulation, p stored as bf16 (RNE).
-//   pss_corr_int8          _corr_kernel_v2_int8 (:416): int8 planes,
+//   pss_corr_int8          _corr_kernel_v2_int8 (:416): int8 operands,
 //                          int32 accumulation, p stored UNSCALED as bf16.
+//                          These two take the capture words and packed
+//                          taps of the tensor-core loop (below); the
+//                          others take (re, im) planes.
 //   pss_corr_f32           _corr_kernel (v1, :67) with f32 bands, and v2
 //                          with f32 bands: f32 planes, f32 FMA, f32 out.
 //   pss_corr_bf16_f32out   v1 with bf16 bands and v3 with f32 output:
@@ -39,26 +42,50 @@
 // operations), ~8.5 us (int8, 28.5 MB of bf16 output over 3.35 TB/s) and
 // ~17 us (f32 output: 57 MB of stores).  pss_corr_f32 computes in f32
 // (a TF32 tensor-core path would compute another function), so its bound is
-// 15.6 GFLOP over the 67 TF of the CUDA cores, 0.23 ms.  This first design
-// runs every route on the CUDA cores, so all are operation-bound near that
-// 0.23 ms.
+// 15.6 GFLOP over the 67 TF of the CUDA cores, 0.23 ms.
 //
-// Design: the TPU kernels' band matrices only exist to feed a 128-lane
-// matrix unit -- v2/v3's im2col matrix (W = 120 lags x K = 256 samples per
-// row, 23 MB of mostly-zero bands), v1's three 128 x 128 Toeplitz planes
-// per template (12 real dots), and v3's in-kernel transpose, which only
-// produces the [template, lag] layout that this kernel writes directly.
-// Here each block stages the capture span of its 256-lag tile plus its 16
-// templates' 137 taps in shared memory and every thread keeps a 4-lag x
-// 4-template register tile, so each tap step does 8 shared loads for 64
+// Two loops serve the entry points.
+//
+// The bf16 map of pss_corr_bf16 and the UNSCALED map of pss_corr_int8 run
+// on the tensor cores (map_tc_kernel): the Hankel product of
+// hankel_mma.cuh (mma.sync m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32) with
+// FOUR templates in each n8 column group, column 2q Re and 2q + 1 Im of
+// template 4n + q (B packed by `pack_map_taps` in ops/corr_cuda.py, zero
+// only past T).  At T = 93 that is 24 groups, and 93/96 * 137/144 = 92% of
+// the padded tensor-core work is useful.  A block of 8 warps holds 8
+// groups' B fragments (32 templates) in registers and walks lag tiles of
+// 256 (16 m-tiles per warp, every warp on the same lags): each tile's
+// capture span (256 lags + 143 taps, 400 words of `capture_words`) is
+// copied with cp.async into one of two buffers while the other tile
+// computes, with one block barrier per tile.  The grid holds as many
+// blocks as the card keeps resident and each walks every gridDim.x-th
+// tile.  The epilogue squares in the lane's registers (the int8 sums are
+// exact, so the map is bit-equal to its plain version), writes bf16 powers
+// into the warp's 4 rows of a [32 template][256 lag] shared tile, and the
+// warp stores them with 16-byte coalesced stores (the 28.5 MB map is what
+// bounds int8) while other warps compute.  Ragged lag tiles and templates
+// past T are masked.
+//
+// The other four entry points (f32 operands or f32 output, the scaled int8
+// probe, the sum probe) run on the CUDA cores (map_kernel, sum_kernel).
+// The TPU kernels' band matrices only exist to feed a 128-lane matrix unit
+// -- v2/v3's im2col matrix (W = 120 lags x K = 256 samples per row, 23 MB
+// of mostly-zero bands), v1's three 128 x 128 Toeplitz planes per template
+// (12 real dots), and v3's in-kernel transpose, which only produces the
+// [template, lag] layout that these kernels write directly.  There each
+// block stages the capture span of its 256-lag tile plus its 16 templates'
+// 137 taps in shared memory and every thread keeps a 4-lag x 4-template
+// register tile, so each tap step does 8 shared loads for 64
 // multiply-adds.  Warps share one template row (broadcast loads) and walk
-// consecutive lags (conflict-free loads).  The ragged last lag tile and the
-// padded template rows are masked.  One loop serves every route; only the
-// operand type and the epilogue differ.
+// consecutive lags (conflict-free loads).  The ragged last lag tile and
+// the padded template rows are masked.  Only the operand type and the
+// epilogue differ between those four.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hankel_mma.cuh"
 
 namespace {
 
@@ -176,13 +203,6 @@ __device__ __forceinline__ void correlate_tile(
 }
 
 // Epilogues: store one entry of the [n_t, n_lags] map from Re and Im.
-struct PowBf16 {
-  __nv_bfloat16* out;
-  __device__ void operator()(size_t i, float fr, float fi) const {
-    out[i] = __float2bfloat16_rn(power(fr, fi));
-  }
-};
-
 struct PowF32 {
   float* out;
   __device__ void operator()(size_t i, float fr, float fi) const {
@@ -294,20 +314,148 @@ int launch(const void* cap, const void* taps, Store store, int n_cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The tensor-core loop: the bf16 map and the UNSCALED int8 map.
 
-extern "C" int pss_corr_bf16(const void* cap, const void* taps, void* out,
-                             int n_cap, int n_t, int n_lags, void* stream) {
-  return launch<__nv_bfloat16, float>(
-      cap, taps, PowBf16{static_cast<__nv_bfloat16*>(out)}, n_cap, n_t,
-      n_lags, stream);
+constexpr int kTcWarps = 8;                    // column groups per block
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcTmpl = 4 * kTcWarps;          // 32 templates per block
+constexpr int kTcLags = hankel::kTileLags;     // 256 lags per tile
+// words per staged span: 256 lags + 143 taps in whole 16-byte chunks (the
+// span starts at word l0 + 4, a multiple of 4)
+constexpr int kTcSpan = (kTcLags + hankel::kTapsPad - 1 + 3) / 4 * 4;
+constexpr int kTcPitch = kTcLags + 8;          // bf16 per staged output row:
+                                               // conflict-free epilogue stores
+
+// words: [n_words] capture words (capture_words: sample s at word s + 4,
+// zero past the capture); taps: [ceil(n_t / 4), 8, 288] packed B columns
+// (pack_map_taps) as 32-bit words; out: [n_t, n_lags] bf16.
+template <class Tr>
+__global__ void __launch_bounds__(kTcThreads)
+map_tc_kernel(const uint32_t* __restrict__ words,
+              const uint32_t* __restrict__ taps,
+              __nv_bfloat16* __restrict__ out, int n_words, int n_t,
+              int n_lags) {
+  using Acc = typename Tr::Acc;
+  __shared__ __align__(16) uint32_t span[2][kTcSpan];
+  __shared__ __align__(16) __nv_bfloat16 tile[kTcTmpl][kTcPitch];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int group = blockIdx.y * kTcWarps + warp;
+  const bool active = group < (n_t + 3) / 4;   // warp-uniform
+  // whole rows go out as 16-byte stores when every row start is aligned
+  const bool wide = (n_lags & 7) == 0
+                    && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+
+  // the group's B fragments, resident for every tile
+  uint32_t b[Tr::kSteps][2];
+  hankel::load_b<Tr>(taps, active ? group : 0, g, q, b);
+  // the warp's 4 rows of the staged output tile (templates 4 group + r)
+  __nv_bfloat16(*rows)[kTcPitch] = tile + 4 * warp;
+
+  int l0 = blockIdx.x * kTcLags;
+  hankel::stage<kTcThreads>(span[0], words, l0 + hankel::kGuard, n_words,
+                            kTcSpan);
+  hankel::cp_async_commit();
+  for (int it = 0; l0 < n_lags; ++it) {
+    hankel::cp_async_wait_all();    // this tile's span has landed (this
+    __syncthreads();                // thread's copies, then every thread's);
+                                    // the other buffer's reads are done
+    const int l_next = l0 + gridDim.x * kTcLags;
+    if (l_next < n_lags) {
+      hankel::stage<kTcThreads>(span[(it + 1) & 1], words,
+                                l_next + hankel::kGuard, n_words, kTcSpan);
+      hankel::cp_async_commit();
+    }
+    if (active) {
+      Acc acc[hankel::kTiles][4];
+#pragma unroll
+      for (int i = 0; i < hankel::kTiles; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = Acc(0);
+      }
+      hankel::correlate<Tr>(span[it & 1] + g + Tr::kLaneQ * q, b, acc);
+      // lane (g, q): template 4 group + q at lags l0 + 16 i + g (+ 8)
+#pragma unroll
+      for (int i = 0; i < hankel::kTiles; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rows[q][16 * i + 8 * h + g] = __float2bfloat16_rn(
+              power(Tr::to_f32(acc[i][2 * h]), Tr::to_f32(acc[i][2 * h + 1])));
+        }
+      }
+      __syncwarp();
+      // the warp's rows, masked past n_t and n_lags
+      const int n_rows = min(4, n_t - 4 * group);
+      const int cols = min(kTcLags, n_lags - l0);
+      __nv_bfloat16* o = out + static_cast<size_t>(4 * group) * n_lags + l0;
+      if (wide && cols == kTcLags) {
+        constexpr int kChunks = kTcLags / 8;   // 16-byte chunks per row
+        for (int e = lane; e < n_rows * kChunks; e += 32) {
+          const int r = e / kChunks;
+          const int c = 8 * (e % kChunks);
+          *reinterpret_cast<uint4*>(o + static_cast<size_t>(r) * n_lags + c)
+              = *reinterpret_cast<const uint4*>(&rows[r][c]);
+        }
+      } else {
+        for (int e = lane; e < n_rows * kTcLags; e += 32) {
+          const int r = e / kTcLags;
+          const int c = e % kTcLags;
+          if (c < cols) o[static_cast<size_t>(r) * n_lags + c] = rows[r][c];
+        }
+      }
+    }
+    l0 = l_next;
+  }
 }
 
-extern "C" int pss_corr_int8(const void* cap, const void* taps, void* out,
-                             int n_cap, int n_t, int n_lags, void* stream) {
-  return launch<int8_t, int>(
-      cap, taps, PowBf16{static_cast<__nv_bfloat16*>(out)}, n_cap, n_t,
-      n_lags, stream);
+// As many blocks as the card keeps resident, each walking every
+// gridDim.x-th lag tile of its 32 templates.
+template <class Tr>
+int launch_tc(const void* words, const void* taps, void* out, int n_words,
+              int n_t, int n_lags, void* stream) {
+  static int slots = 0;             // resident blocks on the card
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, map_tc_kernel<Tr>, kTcThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = max(1, sms * per_sm);
+  }
+  const int n_tiles = (n_lags + kTcLags - 1) / kTcLags;
+  const int n_groups = (n_t + 3) / 4;
+  const int gy = (n_groups + kTcWarps - 1) / kTcWarps;
+  const dim3 grid(max(1, min(n_tiles, slots / gy)), gy);
+  map_tc_kernel<Tr><<<grid, kTcThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(taps),
+      static_cast<__nv_bfloat16*>(out), n_words, n_t, n_lags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// words: capture_words of one capture, [n_words] 32-bit words; taps:
+// pack_map_taps of the n_t templates; out: [n_t, n_lags] bf16.
+extern "C" int pss_corr_bf16(const void* words, const void* taps, void* out,
+                             int n_words, int n_t, int n_lags, void* stream) {
+  return launch_tc<hankel::Bf16>(words, taps, out, n_words, n_t, n_lags,
+                                 stream);
+}
+
+extern "C" int pss_corr_int8(const void* words, const void* taps, void* out,
+                             int n_words, int n_t, int n_lags, void* stream) {
+  return launch_tc<hankel::Int8>(words, taps, out, n_words, n_t, n_lags,
+                                 stream);
 }
 
 extern "C" int pss_corr_f32(const void* cap, const void* taps, void* out,

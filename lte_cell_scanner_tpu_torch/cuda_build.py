@@ -3,7 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) in ``build/`` beside this file, at first use, and loaded
-with ctypes.
+with ctypes.  Both sources include ``csrc/hankel_mma.cuh``, the
+tensor-core correlation they share.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header beside it (csrc/*.cuh)."""
     lib = library_path(name)
+    inputs = [SOURCES[name], *SOURCES[name].parent.glob("*.cuh")]
     return (not lib.exists()
-            or lib.stat().st_mtime < SOURCES[name].stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs))
 
 
 def build(name: str) -> Tuple[float, str]:

@@ -17,7 +17,7 @@ Array layout: lag axis last ([3, n_f, lag]).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
@@ -82,18 +82,25 @@ _ROUTES = {("v2", "bf16"): (torch.bfloat16, torch.float32),
 
 @dataclass
 class KernelOperands:
-    """Quantized operands of one CUDA correlation route."""
+    """Quantized operands of one CUDA correlation route.  A bf16 map from
+    bf16 or int8 operands runs on the tensor-core kernels, whose packed
+    taps (``corr_cuda.pack_map_taps``) are made here once, so that each
+    capture only builds its words."""
     precision: str                  # "bf16", "int8" or "f32"
     taps: torch.Tensor              # [2, T, 137] template planes
     power_scale: Optional[float]    # int8 only: restores capture units
     out_dtype: torch.dtype = torch.bfloat16   # the power map's type
     route: str = "v2"               # the TPU route: "v1", "v2" or "v3"
+    packed: Optional[torch.Tensor] = field(init=False, default=None,
+                                           repr=False)
 
     def __post_init__(self):
         if self.out_dtype not in _ROUTES.get((self.route, self.precision),
                                              ()):
             raise ValueError(f"no {self.route} route with {self.precision} "
                              f"operands and a {self.out_dtype} map")
+        if self.out_dtype == torch.bfloat16:
+            self.packed = corr_cuda.pack_map_taps(self.taps)
 
 
 def v1_operands(tmpl_flat, precision: str, device) -> KernelOperands:
@@ -143,14 +150,15 @@ def _corr_stage(capbuf: torch.Tensor, templates: Optional[torch.Tensor],
                              "complex correlation (keep_xc=True)")
         if kern.precision == "int8":
             xc2 = corr_cuda.corr_pow_int8(
-                corr_cuda.capture_planes_int8(capbuf), kern.taps, n_lags)
+                corr_cuda.capture_planes_int8(capbuf), kern.taps, n_lags,
+                kern.packed)
         elif kern.precision == "f32":
             xc2 = corr_cuda.corr_pow_f32(
                 corr_cuda.capture_planes_f32(capbuf), kern.taps, n_lags)
         else:
             xc2 = corr_cuda.corr_pow_bf16(
                 corr_cuda.capture_planes_bf16(capbuf), kern.taps, n_lags,
-                kern.out_dtype)
+                kern.out_dtype, kern.packed)
         return xc2.reshape(3, n_f, n_lags), None, kern.power_scale
     n_f = templates.shape[1]
     xc = correlate(capbuf, templates.reshape(3 * n_f, PSS_TD_LEN))

@@ -23,6 +23,16 @@ templates and all lags, p[t, l] = |sum_m tmpl[t, m] * cap[l + m]|^2.
 - ``corr_pow_bf16_per_chunk`` is that tool's per-chunk probe: the bf16
   kernel launched once per chunk of templates.
 
+The bf16 map (``pss_corr_bf16``) and the int8 map (``pss_corr_int8``)
+run on the tensor cores: the Hankel product of ``csrc/hankel_mma.cuh``
+(shared with the fused kernels of ``ops/corr_fold_cuda.py``) of the
+capture's 32-bit words (``capture_words``) and the packed taps of four
+templates per n8 column group (``pack_map_taps``).  The wrapper builds
+the words for each call and packs the taps unless the caller passes
+them packed (``KernelOperands.packed`` in ``models/xcorr.py`` packs them
+once).  The other entry points take (re, im) planes and run on the CUDA
+cores.
+
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
 error) and takes the plain version only for CPU tensors.  ``LAUNCHES``
 counts kernel launches per wrapper, for these kernels and the fused
@@ -53,6 +63,11 @@ SUM_ROW_LAGS = 120
 SUM_BLOCK_LAGS = 128 * SUM_ROW_LAGS
 SUM_T_CHUNK = 16
 SUM_COLS = 8
+
+# The tensor-core kernels' operands (csrc/hankel_mma.cuh: kTapsPad, kGuard)
+TAPS_PAD = 144           # taps per template on the K axis (7 zero)
+_GUARD = 4               # zero words before sample 0
+MAP_GROUP = 4            # templates per n8 column group of the map kernels
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +157,52 @@ def capture_planes_int8(capbuf: torch.Tensor) -> torch.Tensor:
     p = torch.stack([capbuf.real, capbuf.imag], dim=-2).float()
     return torch.clamp(torch.round(p * 128.0), -127.0, 127.0) \
         .to(torch.int8).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Operands of the tensor-core kernels
+# ---------------------------------------------------------------------------
+
+def capture_words(cap: torch.Tensor) -> torch.Tensor:
+    """Capture planes [C, 2, n] -> the words the tensor-core kernels
+    stage, one 32-bit word per sample, with 4 zero words before sample 0
+    and zeros past the capture up to a whole number of 16-byte chunks.
+    Word j of bf16 [C, n_w, 2] holds (Re, Im) of sample j - 4; word j of
+    int8 [C, n_w, 4] holds (Re, Im) of samples j - 4 and j - 3, the two
+    consecutive taps' worth that one m16n8k32 A register takes."""
+    n_c, _, n_cap = cap.shape
+    n_w = -(-(n_cap + _GUARD) // 4) * 4
+    pair = cap.dtype == torch.int8
+    x = F.pad(cap.transpose(1, 2), (0, 0, _GUARD, n_w + pair - _GUARD - n_cap))
+    if not pair:
+        return x
+    # each int8 (Re, Im) sample as one int16; word j = samples j, j + 1
+    samples = x.view(torch.int16)[..., 0]
+    return samples.unfold(1, 2, 1).contiguous().view(torch.int8)
+
+
+def pack_map_taps(taps: torch.Tensor) -> torch.Tensor:
+    """Template planes [2, T, 137] (bf16 or int8) -> the map kernels' B
+    operand [ceil(T / 4), 8, 288] of the same type: for column group n,
+    column 2q is Re and column 2q + 1 is Im of template t = 4n + q, and
+    K index 2k + c (tap k < 144, c = 0 for the capture's Re, 1 for its
+    Im):
+
+        B[n, 2q, 2k] = tr,  B[n, 2q, 2k + 1] = -ti,
+        B[n, 2q + 1, 2k] = ti,  B[n, 2q + 1, 2k + 1] = tr
+
+    of template t.  Taps 137-143 and the columns of templates past T are
+    zero.  Each column is contiguous (the "col" B of ``mma.sync``), so one
+    fragment register is one aligned 32-bit load.  The int8 taps are
+    clipped to +-127, so the negation is exact."""
+    n_t = taps.shape[1]
+    n_g = -(-n_t // MAP_GROUP)
+    b = taps.new_zeros((n_g * MAP_GROUP, 2, TAPS_PAD, 2))  # [t, col, k, c]
+    b[:n_t, 0, :PSS_TD_LEN, 0] = taps[0]
+    b[:n_t, 0, :PSS_TD_LEN, 1] = -taps[1]
+    b[:n_t, 1, :PSS_TD_LEN, 0] = taps[1]
+    b[:n_t, 1, :PSS_TD_LEN, 1] = taps[0]
+    return b.reshape(n_g, 2 * MAP_GROUP, 2 * TAPS_PAD)
 
 
 # ---------------------------------------------------------------------------
@@ -269,23 +330,50 @@ def _check(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
         raise ValueError("operands must be contiguous")
 
 
-def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
-            out: torch.Tensor, n_lags: int, *extra,
-            count: Optional[str] = None) -> torch.Tensor:
-    """Launch entry point ``name`` writing ``out`` (allocated by the
-    caller); counts the launch under ``count`` (default: ``name``)."""
-    if cap.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {cap.device}")
-    with torch.cuda.device(cap.device):
+def _check_packed(packed: torch.Tensor, taps: torch.Tensor) -> None:
+    want = (-(-taps.shape[1] // MAP_GROUP), 2 * MAP_GROUP, 2 * TAPS_PAD)
+    if (packed.device != taps.device or packed.dtype != taps.dtype
+            or tuple(packed.shape) != want or not packed.is_contiguous()):
+        raise ValueError(f"packed taps must be pack_map_taps(taps): a "
+                         f"contiguous {taps.dtype} {list(want)} on "
+                         f"{taps.device}, got {packed.dtype} "
+                         f"{list(packed.shape)} on {packed.device}")
+
+
+def _run(name: str, device: torch.device, out: torch.Tensor, *args,
+         count: Optional[str] = None) -> torch.Tensor:
+    """Launch entry point ``name`` on ``device`` with ``args`` (pointers
+    and integers; the stream is appended), writing ``out`` (allocated by
+    the caller); counts the launch under ``count`` (default: ``name``)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_kernels(), name)(
-            cap.data_ptr(), taps.data_ptr(), out.data_ptr(),
-            int(cap.shape[1]), int(taps.shape[1]), int(n_lags), *extra,
-            stream)
+        err = getattr(_kernels(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[count or name] += 1
     return out
+
+
+def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
+            out: torch.Tensor, n_lags: int, *extra,
+            count: Optional[str] = None) -> torch.Tensor:
+    """A CUDA-core entry point on (re, im) planes."""
+    return _run(name, cap.device, out, cap.data_ptr(), taps.data_ptr(),
+                out.data_ptr(), int(cap.shape[1]), int(taps.shape[1]),
+                int(n_lags), *extra, count=count)
+
+
+def _launch_tc(name: str, words: torch.Tensor, packed: torch.Tensor,
+               out: torch.Tensor, n_t: int, n_lags: int,
+               count: Optional[str] = None) -> torch.Tensor:
+    """A tensor-core entry point on one capture's words [n_w, 2 or 4]
+    (``capture_words``) and the packed taps of n_t templates
+    (``pack_map_taps``): the bare launch, without building operands."""
+    return _run(name, words.device, out, words.data_ptr(), packed.data_ptr(),
+                out.data_ptr(), int(words.shape[0]), int(n_t), int(n_lags),
+                count=count)
 
 
 def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
@@ -293,22 +381,40 @@ def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
                        device=taps.device)
 
 
+def _launch_map(name: str, cap: torch.Tensor, taps: torch.Tensor,
+                n_lags: int, packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """The bf16 map of a tensor-core entry point: the capture's words
+    built here, the taps packed here unless ``packed`` is given."""
+    words = capture_words(cap[None])[0]
+    if packed is None:
+        packed = pack_map_taps(taps)
+    out = _map(taps, n_lags, torch.bfloat16)
+    return _launch_tc(name, words, packed, out, taps.shape[1], n_lags)
+
+
 def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
-                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.bfloat16,
+                  packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Correlation-power map [T, n_lags] from bf16 capture planes [2, n]
     and template planes [2, T, 137], stored as ``out_dtype``: bf16
-    (``pss_corr_bf16``) or f32 (``pss_corr_bf16_f32out``)."""
+    (``pss_corr_bf16``, tensor cores; ``packed``: the taps already
+    packed by ``pack_map_taps``) or f32 (``pss_corr_bf16_f32out``)."""
     _check(cap, taps, n_lags, torch.bfloat16)
-    if out_dtype == torch.bfloat16:
-        plain, name = corr_pow_bf16_plain, "pss_corr_bf16"
-    elif out_dtype == torch.float32:
-        plain, name = corr_pow_f32_plain, "pss_corr_bf16_f32out"
-    else:
+    if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bfloat16 or float32, got "
                          f"{out_dtype}")
+    if packed is not None:
+        if out_dtype != torch.bfloat16:
+            raise ValueError("packed taps serve the bf16 map only")
+        _check_packed(packed, taps)
+    if out_dtype == torch.float32:
+        if cap.device.type == "cpu":
+            return corr_pow_f32_plain(cap, taps, n_lags)
+        return _launch("pss_corr_bf16_f32out", cap, taps,
+                       _map(taps, n_lags, torch.float32), n_lags)
     if cap.device.type == "cpu":
-        return plain(cap, taps, n_lags)
-    return _launch(name, cap, taps, _map(taps, n_lags, out_dtype), n_lags)
+        return corr_pow_bf16_plain(cap, taps, n_lags)
+    return _launch_map("pss_corr_bf16", cap, taps, n_lags, packed)
 
 
 def corr_pow_bf16_per_chunk(cap: torch.Tensor, taps: torch.Tensor,
@@ -317,19 +423,30 @@ def corr_pow_bf16_per_chunk(cap: torch.Tensor, taps: torch.Tensor,
     ``pss_corr_bf16`` per chunk of ``t_chunk`` templates, each writing
     its rows of one [T, n_lags] output (the per-chunk probe of
     tools/bench_corr_v2.py:268-328, which measures the cost of a launch
-    per chunk against one launch)."""
+    per chunk against one launch).  The capture's words and each chunk's
+    packed taps are built before the first launch: slices of one packing
+    when chunks hold whole column groups."""
     _check(cap, taps, n_lags, torch.bfloat16)
     if t_chunk < 1:
         raise ValueError(f"t_chunk must be positive, got {t_chunk}")
-    starts = range(0, taps.shape[1], t_chunk)
+    chunks = [taps[:, j: j + t_chunk] for j in range(0, taps.shape[1],
+                                                      t_chunk)]
     if cap.device.type == "cpu":
-        return torch.cat([corr_pow_bf16_plain(
-            cap, taps[:, j: j + t_chunk], n_lags) for j in starts])
+        return torch.cat([corr_pow_bf16_plain(cap, c, n_lags)
+                          for c in chunks])
     out = _map(taps, n_lags, torch.bfloat16)
-    for j in starts:
-        _launch("pss_corr_bf16", cap, taps[:, j: j + t_chunk].contiguous(),
-                out[j: j + t_chunk], n_lags,
-                count="pss_corr_bf16_per_chunk")
+    words = capture_words(cap[None])[0]
+    if t_chunk % MAP_GROUP == 0:
+        whole = pack_map_taps(taps)
+        step = t_chunk // MAP_GROUP
+        packed = [whole[i: i + step] for i in range(0, len(whole), step)]
+    else:
+        packed = [pack_map_taps(c) for c in chunks]
+    j = 0
+    for c, b in zip(chunks, packed):
+        _launch_tc("pss_corr_bf16", words, b, out[j: j + c.shape[1]],
+                   c.shape[1], n_lags, count="pss_corr_bf16_per_chunk")
+        j += c.shape[1]
     return out
 
 
@@ -344,15 +461,18 @@ def corr_pow_f32(cap: torch.Tensor, taps: torch.Tensor,
                    _map(taps, n_lags, torch.float32), n_lags)
 
 
-def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor,
-                  n_lags: int) -> torch.Tensor:
+def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
+                  packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """UNSCALED int8 correlation-power map [T, n_lags] (bf16) from int8
-    capture planes [2, n] and template planes [2, T, 137]."""
+    capture planes [2, n] and template planes [2, T, 137]
+    (``pss_corr_int8``, tensor cores; ``packed``: the taps already packed
+    by ``pack_map_taps``)."""
     _check(cap, taps, n_lags, torch.int8)
+    if packed is not None:
+        _check_packed(packed, taps)
     if cap.device.type == "cpu":
         return corr_pow_int8_plain(cap, taps, n_lags)
-    return _launch("pss_corr_int8", cap, taps,
-                   _map(taps, n_lags, torch.bfloat16), n_lags)
+    return _launch_map("pss_corr_int8", cap, taps, n_lags, packed)
 
 
 def corr_pow_int8_scaled(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,

@@ -32,7 +32,8 @@ columns of the hypothesis's three PSS (columns 6-7 zero), 71% of it
 useful work.  The wrapper builds both operands before the launch:
 ``pack_fold_taps`` (B, column-major, as the kernel's fragments read it)
 and ``capture_words`` (one 32-bit word per sample, the layout the kernel
-stages with 16-byte ``cp.async`` copies).  Both are part of each wrapper
+stages with 16-byte ``cp.async`` copies; defined in ``ops/corr_cuda.py``,
+whose map kernels read the same words).  Both are part of each wrapper
 call.
 
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
@@ -56,16 +57,15 @@ import torch
 
 from ..constants import HALF_FRAME_LEN, PSS_TD_LEN
 from . import corr_cuda
+# shared with the map kernels; re-exported for this module's callers
+from .corr_cuda import TAPS_PAD, capture_words  # noqa: F401
 
 W_V4 = 80                # lags per row of the TPU kernel
 KV_V2 = 256              # its default row window
 KV_V4_WIDE = 384         # its wide row window (long captures)
-# the CUDA kernel's block (csrc/pss_corr_fold.cu: kWarps, kTileLags,
-# kTapsPad, kGuard)
+# the CUDA kernel's block (csrc/pss_corr_fold.cu: kWarps, kTileLags)
 _HYP_PER_BLOCK = 4       # hypotheses per block, one per warp
 _TILE_LAGS = 256         # fold-output lags per block
-TAPS_PAD = 144           # taps per template on the K axis (7 zero)
-_GUARD = 4               # staged words before sample 0
 # a block's span at zero start spread: 256 lags + 143 taps, and up to 3
 # words that align its first 16-byte copy
 _SPAN_BASE = 3 + _TILE_LAGS + TAPS_PAD - 1
@@ -187,23 +187,6 @@ def pack_fold_taps(taps: torch.Tensor) -> torch.Tensor:
     b[:, :3, 1, :PSS_TD_LEN, 0] = ti
     b[:, :3, 1, :PSS_TD_LEN, 1] = tr
     return b.reshape(n_f, 8, 2 * TAPS_PAD)
-
-
-def capture_words(cap: torch.Tensor) -> torch.Tensor:
-    """Capture planes [C, 2, n] -> the words the kernel stages, one
-    32-bit word per sample, with 4 zero words before sample 0 and zeros
-    past the capture up to a whole number of 16-byte chunks.  Word j of
-    bf16 [C, n_w, 2] holds (Re, Im) of sample j - 4; word j of int8
-    [C, n_w, 4] holds (Re, Im) of samples j - 4 and j - 3, the two
-    consecutive taps' worth that one m16n8k32 A register takes."""
-    n_c, _, n_cap = cap.shape
-    n_w = -(-(n_cap + _GUARD) // 4) * 4
-    pair = cap.dtype == torch.int8
-    x = cap.new_zeros((n_c, n_w + pair, 2))
-    x[:, _GUARD:_GUARD + n_cap] = cap.transpose(1, 2)
-    if pair:
-        return torch.cat([x[:, :-1], x[:, 1:]], dim=2)
-    return x
 
 
 # ---------------------------------------------------------------------------

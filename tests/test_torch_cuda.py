@@ -61,12 +61,25 @@ def _operands(precision, n_f, n_cap, seed, device):
             corr_cuda.template_planes_bf16(tmpl, device))
 
 
-# ragged lag tiles and template chunks: n_lags not a multiple of the
-# 256-lag tile, T not a multiple of the 16-template chunk
-@pytest.mark.parametrize("n_f,n_cap", [(1, 137 + 5), (3, 9600 + 401),
-                                       (7, 2 * 9600 + 777)])
-def test_bf16_kernel_matches_its_plain_version(cuda, n_f, n_cap):
-    cap, taps = _operands("bf16", n_f, n_cap, 1 + n_f, cuda)
+def _map_operands(precision, n_t, n_cap, seed, device):
+    """_operands with T = n_t templates: the first n_t of the 3 n_f
+    templates of n_f = ceil(n_t / 3) hypotheses."""
+    cap, taps = _operands(precision, -(-n_t // 3), n_cap, seed, device)
+    return cap, taps[:, :n_t].contiguous()
+
+
+# the tensor-core map kernels: ragged lag tiles (n_lags not a multiple of
+# 256, and 6 lags), T not a multiple of a column group's 4 templates or a
+# block's 32, the production T = 93, and the full width (one 80 ms
+# capture at T = 93)
+MAP_SHAPES = [(3, 137 + 5), (9, 9600 + 401), (21, 2 * 9600 + 777),
+              (5, 9600 + 401), (16, 2 * 9600 + 777), (93, 2 * 9600 + 777),
+              (93, 153600)]
+
+
+@pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
+def test_bf16_kernel_matches_its_plain_version(cuda, n_t, n_cap):
+    cap, taps = _map_operands("bf16", n_t, n_cap, 1 + n_t, cuda)
     n_lags = n_cap - 136
     before = corr_cuda.LAUNCHES["pss_corr_bf16"]
     got = corr_cuda.corr_pow_bf16(cap, taps, n_lags)
@@ -79,14 +92,40 @@ def test_bf16_kernel_matches_its_plain_version(cuda, n_f, n_cap):
     assert bool(((g - r).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("n_f,n_cap", [(1, 137 + 5), (3, 9600 + 401),
-                                       (7, 2 * 9600 + 777)])
-def test_int8_kernel_is_bit_equal_to_its_plain_version(cuda, n_f, n_cap):
-    cap, taps = _operands("int8", n_f, n_cap, 2 + n_f, cuda)
+@pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
+def test_int8_kernel_is_bit_equal_to_its_plain_version(cuda, n_t, n_cap):
+    cap, taps = _map_operands("int8", n_t, n_cap, 2 + n_t, cuda)
     n_lags = n_cap - 136
     got = corr_cuda.corr_pow_int8(cap, taps, n_lags)
     ref = corr_cuda.corr_pow_int8_plain(cap, taps, n_lags)
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("adc", [False, True], ids=["bf16", "int8"])
+def test_packed_taps_of_kernel_operands_give_the_same_map(cuda, adc):
+    """The main path's operands (KernelOperands packs the taps once) and
+    the wrapper's own packing: the same map, bit for bit, at full width."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import _front_staging
+    cap = two_cell_capture()
+    if adc:
+        cap = adc_quantize(cap)
+    cap_t, _tmpl, _starts, kern, _n = _front_staging(
+        cap, default_f_search_set(FC, 100.0), FC, FC, FS, "auto", cuda, None,
+        True)
+    assert kern.precision == ("int8" if adc else "bf16")
+    n_lags = cap_t.shape[0] - 136
+    if adc:
+        planes = corr_cuda.capture_planes_int8(cap_t)
+        name, wrapper = "pss_corr_int8", corr_cuda.corr_pow_int8
+    else:
+        planes = corr_cuda.capture_planes_bf16(cap_t)
+        name, wrapper = "pss_corr_bf16", corr_cuda.corr_pow_bf16
+    corr_cuda.reset_launch_counts()
+    got = wrapper(planes, kern.taps, n_lags, packed=kern.packed)
+    want = wrapper(planes, kern.taps, n_lags)
+    torch.cuda.synchronize()
+    assert _launched() == {name: 2}
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 RAGGED = [(1, 137 + 5), (3, 9600 + 401), (7, 2 * 9600 + 777)]

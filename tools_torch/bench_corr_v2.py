@@ -210,7 +210,7 @@ def run(args) -> dict:
                     "v3b": lambda: v3_operands(tmpl, device,
                                                torch.bfloat16)}[kind]()
             add(name, lambda kern=kern: corr_cuda.corr_pow_bf16(
-                cap_b, kern.taps, n_lags, kern.out_dtype))
+                cap_b, kern.taps, n_lags, kern.out_dtype, kern.packed))
     return res
 
 

@@ -87,8 +87,8 @@ def _maps(cap_t, tmpl_flat, kern, v1):
                                                      n_lags),
             "v1_bf16": lambda: corr_cuda.corr_pow_bf16(
                 cap_b, v1["bf16"].taps, n_lags, torch.float32),
-            "v2_bf16": lambda: corr_cuda.corr_pow_bf16(cap_b, kern.taps,
-                                                       n_lags)}
+            "v2_bf16": lambda: corr_cuda.corr_pow_bf16(
+                cap_b, kern.taps, n_lags, packed=kern.packed)}
 
 
 def parity(args) -> dict:
