@@ -8,8 +8,11 @@ Phases, each fatal on failure:
      with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
      sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
      ``hankel_mma.cuh``), all started together; the ptxas register and
-     spill lines of the four tensor-core kernel instances (any spill
-     fails);
+     spill lines of the six tensor-core kernel instances, keyed by trait
+     and epilogue (the four of ``map_tc_kernel``: bf16, int8, bf16_f32out,
+     int8_scaled; the two of ``pss_corr_fold_kernel``; a missing instance
+     or any spill fails), and the resident blocks per SM of the four map
+     instances (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernel phase at full width for the v2 kernels (tensor-core mma.sync;
      T = 93 templates: +-100 ppm at 739 MHz; one 80 ms capture of 153600
      samples) on the main path's operands (taps packed once): each kernel
@@ -22,14 +25,17 @@ Phases, each fatal on failure:
      data-sheet peak (the share of this card's ruler follows at phase 9);
   3b. kernel phase at the same width for the correlation A/B path's
      kernels: pss_corr_f32 (v1/v2 with f32 bands) and
-     pss_corr_bf16_f32out (v1 with bf16 bands, v3) on the float capture
-     within 1e-5 x max of their plain versions, pss_corr_int8_scaled
-     (the int8 probe) on the ADC-grid capture bit-equal, the sum probe
-     pss_corr_sum_bf16 within 1e-5 of the largest sum, and the per-chunk
-     probe (pss_corr_bf16 once per 16 templates) bit-equal to one
-     launch; each timed beside its plain version, a cuDNN conv1d
-     yardstick (f32, TF32 off, for the f32 kernel; bf16 otherwise) and
-     its bound;
+     pss_corr_bf16_f32out (v1 with bf16 bands, v3; tensor cores) on the
+     float capture within 1e-5 x max of their plain versions,
+     pss_corr_int8_scaled (the int8 probe; tensor cores) on the
+     ADC-grid capture bit-equal, the sum probe pss_corr_sum_bf16 within
+     1e-5 of the largest sum, and the per-chunk probe (pss_corr_bf16
+     once per 16 templates) bit-equal to one launch; each timed beside
+     its plain version, a cuDNN conv1d yardstick (f32, TF32 off, for the
+     f32 kernel; bf16 otherwise) and its bound; the two tensor-core
+     kernels also as the bare launch on capture words and taps packed
+     once, with their useful TF/s (TOPS) and share of the data-sheet
+     peak (of this card's ruler at phase 9);
   4. single-carrier path: ``cell_search`` on a synthetic two-cell capture,
      once on the float capture (bf16 kernel) and once on the same capture
      quantized to the 8-bit ADC grid (int8 kernel); launch counts are
@@ -72,10 +78,11 @@ Phases, each fatal on failure:
      total; median of 3 more runs, each stage synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
-  9. the v2 kernels' useful rates against this card's rulers of phase
-     5b; one JSON line of kernel records (all nine: the four above and the
-     five of the A/B path, whose launches are those of phase 5b), then
-     the result line.
+  9. the four tensor-core map kernels' useful rates against this card's
+     rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
+     pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
+     (all nine: the four above and the five of the A/B path, whose
+     launches are those of phase 5b), then the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -118,6 +125,12 @@ FOLD_REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:774",
                  "int8": "lte_cell_scanner_tpu/ops/corr_pallas.py:792"}
 CHUNK = 64                 # carriers per band-scan chunk (scan_band default)
 UNIT = {"bf16": "TF/s", "int8": "TOPS"}
+# the tensor-core kernel templates' instances: label -> the length-prefixed
+# type names (trait, epilogue) that its mangled name holds
+MAP_TC = {"bf16": ("4Bf16", "7PowBf16"), "int8": ("4Int8", "7PowBf16"),
+          "bf16_f32out": ("4Bf16", "6PowF32"),
+          "int8_scaled": ("4Int8", "13ScaledPowBf16")}
+FOLD_TC = {"bf16": ("4Bf16",), "int8": ("4Int8",)}
 BF16_RTOL = 2.0 ** -7      # one bf16 ulp relative to the value
 BF16_ATOL_REL = 1e-5       # x the map's max, where Re/Im cancel
 
@@ -176,27 +189,39 @@ def phase_build() -> dict:
     return {name: log for name, (_secs, log) in builds}
 
 
-def tc_ptxas(log: str, kernel: str, source: str) -> dict:
-    """ptxas' register and spill lines of the two instances (bf16, int8)
-    of the tensor-core kernel template ``kernel`` in ``source``'s build
-    log, by precision; fails on any spill."""
+def tc_ptxas(log: str, kernel: str, source: str, instances: dict) -> dict:
+    """ptxas' register and spill lines of every instance of the
+    tensor-core kernel template ``kernel`` in ``source``'s build log, by
+    label: ``instances`` maps each label to the type names its mangled
+    name holds, and each instance must match exactly one label.  Fails on
+    an instance it cannot label, a label without an instance, and any
+    spill."""
     lines = {}
     name = None
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
             name = None
-            if kernel in line:
-                name = "int8" if "Int8" in line else "bf16"
+            if f"{len(kernel)}{kernel}" in line:
+                hits = [k for k, types in instances.items()
+                        if all(t in line for t in types)]
+                if len(hits) != 1:
+                    fail(f"{source}: {kernel} instance matches {hits}: "
+                         f"{line}")
+                name = hits[0]
+                if name in lines:
+                    fail(f"{source}: two {kernel} instances for {name}")
+                lines[name] = []
         elif name and ("registers" in line or "spill" in line):
-            lines.setdefault(name, []).append(
-                line.replace("ptxas info    : ", ""))
+            lines[name].append(line.replace("ptxas info    : ", ""))
             if "spill" in line and not (" 0 bytes spill stores" in line
                                         and " 0 bytes spill loads" in line):
                 fail(f"{source} {kernel} ({name}) spills: {line}")
-    if set(lines) != {"bf16", "int8"}:
-        fail(f"no ptxas report for both {kernel} instances: "
-             f"{sorted(lines)}")
+    if set(lines) != set(instances):
+        fail(f"ptxas reports {kernel} instances {sorted(lines)}, expected "
+             f"{sorted(instances)}")
+    for k, v in lines.items():
+        print(f"{kernel} {k}: {'; '.join(v)}")
     return {k: "; ".join(v) for k, v in lines.items()}
 
 
@@ -304,29 +329,39 @@ def check_kernel(precision: str, kern, cap_q, n_lags: int,
     print(f"{precision} kernel: wrapper {ms:.4f} ms, bare launch "
           f"{bare_ms:.4f} ms; plain {plain_ms:.4f} ms; library conv1d "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
-    ops = 8.0 * n_t * n_lags * kern.taps.shape[2]
-    useful = ops / (ms * 1e-3) / 1e12
-    bare = ops / (bare_ms * 1e-3) / 1e12
-    peak = PEAK_OPS[precision] / 1e12
-    print(f"{precision} kernel: {useful:.1f} useful {UNIT[precision]} "
-          f"(wrapper), {bare:.1f} (bare launch): {100.0 * useful / peak:.1f}"
-          f"% and {100.0 * bare / peak:.1f}% of the data-sheet {peak:.0f}; "
-          f"shares of this card's ruler at the end")
     print(f"{precision} kernel: ptxas {ptxas}")
     return {"name": name, "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES[precision],
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bare_ms": bare_ms,
-            "useful_tflops": useful, "bare_useful_tflops": bare,
-            "share_of_peak": useful / peak}
+            "library_ms": library_ms,
+            **tc_rates(name, precision, n_t, n_lags, ms, bare_ms)}
+
+
+def tc_rates(name: str, precision: str, n_t: int, n_lags: int, ms: float,
+             bare_ms: float) -> dict:
+    """A tensor-core map kernel's useful TF/s (TOPS) as the wrapper call
+    and as the bare launch, printed with their share of the data-sheet
+    peak of the operand type (the share of this card's ruler follows at
+    phase 9)."""
+    ops = 8.0 * n_t * n_lags * 137
+    useful = ops / (ms * 1e-3) / 1e12
+    bare = ops / (bare_ms * 1e-3) / 1e12
+    peak = PEAK_OPS[precision] / 1e12
+    print(f"{name}: {useful:.1f} useful {UNIT[precision]} (wrapper), "
+          f"{bare:.1f} (bare launch): {100.0 * useful / peak:.1f}% and "
+          f"{100.0 * bare / peak:.1f}% of the data-sheet {peak:.0f}; shares "
+          f"of this card's ruler at the end")
+    return {"bare_ms": bare_ms, "useful_tflops": useful,
+            "bare_useful_tflops": bare, "share_of_peak": useful / peak}
 
 
 def ab_operands(cap_float, cap_adc, f_set):
     """The A/B path's operands at full width: the float capture as f32 and
-    bf16 planes with the v1 route's f32 and bf16 template planes, the
-    ADC-grid capture as int8 planes with int8 taps and the int8 probe's
-    power scale."""
+    bf16 planes with the v1 route's f32 template planes and bf16 operands
+    (KernelOperands: planes and packed taps), the ADC-grid capture as int8
+    planes with int8 taps, the int8 probe's power scale and the taps
+    packed once."""
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.models.xcorr import (pss_templates,
                                                          v1_operands)
@@ -339,9 +374,10 @@ def ab_operands(cap_float, cap_adc, f_set):
     return {"f32": (corr_cuda.capture_planes_f32(cap_t),
                     v1_operands(tmpl, "f32", dev).taps),
             "bf16": (corr_cuda.capture_planes_bf16(cap_t),
-                     v1_operands(tmpl, "bf16", dev).taps),
+                     v1_operands(tmpl, "bf16", dev)),
             "int8": (corr_cuda.capture_planes_int8(cap_a), taps_i,
-                     corr_cuda.probe_inv(tmpl))}
+                     corr_cuda.probe_inv(tmpl),
+                     corr_cuda.pack_map_taps(taps_i))}
 
 
 def check_ab_kernels(ops, n_lags: int) -> dict:
@@ -349,11 +385,14 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
     (f32 maps within 1e-5 x max, the scaled int8 map bit-equal, the sums
     within 1e-5 relative, the per-chunk map bit-equal to one launch), then
     timed beside their plain versions, a cuDNN conv1d yardstick (f32 for
-    the f32 kernel, else bf16) and their bounds."""
+    the f32 kernel, else bf16) and their bounds; the two tensor-core
+    kernels also as the bare launch on words and packed taps made once,
+    with their useful rates."""
     from lte_cell_scanner_tpu_torch.ops import corr_cuda as cc
     cap_f, taps_f = ops["f32"]
-    cap_b, taps_b = ops["bf16"]
-    cap_i, taps_i, inv = ops["int8"]
+    cap_b, v1 = ops["bf16"]
+    taps_b = v1.taps
+    cap_i, taps_i, inv, packed_i = ops["int8"]
     n_t = taps_b.shape[1]
     f32_map = n_t * n_lags * 4
     sums = 4 * int(np.prod(cc.sum_shape(n_t, n_lags)))
@@ -366,12 +405,14 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
             "max", library_call(cap_f, taps_f, n_lags, torch.float32),
             bound("f32", cap_f, taps_f, n_lags, f32_map)),
         "pss_corr_bf16_f32out": (
-            lambda: cc.corr_pow_bf16(cap_b, taps_b, n_lags, torch.float32),
+            lambda: cc.corr_pow_bf16(cap_b, taps_b, n_lags, torch.float32,
+                                     v1.packed),
             lambda: cc.corr_pow_f32_plain(cap_b, taps_b, n_lags), None,
             "max", library_call(cap_b, taps_b, n_lags),
             bound("bf16", cap_b, taps_b, n_lags, f32_map)),
         "pss_corr_int8_scaled": (
-            lambda: cc.corr_pow_int8_scaled(cap_i, taps_i, n_lags, inv),
+            lambda: cc.corr_pow_int8_scaled(cap_i, taps_i, n_lags, inv,
+                                            packed_i),
             lambda: cc.corr_pow_int8_scaled_plain(cap_i, taps_i, n_lags,
                                                   inv), None,
             "equal", library_call(cap_i, taps_i, n_lags),
@@ -387,6 +428,19 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
             lambda: cc.corr_pow_bf16(cap_b, taps_b, n_lags),
             "equal", library_call(cap_b, taps_b, n_lags),
             bound("bf16", cap_b, taps_b, n_lags)),
+    }
+    # the tensor-core kernels' bare launches: (launch, operand type)
+    words_b = cc.capture_words(cap_b[None])[0]
+    words_i = cc.capture_words(cap_i[None])[0]
+    out_f = torch.empty((n_t, n_lags), dtype=torch.float32, device="cuda")
+    out_b = torch.empty((n_t, n_lags), dtype=torch.bfloat16, device="cuda")
+    bare = {
+        "pss_corr_bf16_f32out": (lambda: cc._launch_tc(
+            "pss_corr_bf16_f32out", words_b, v1.packed, out_f, n_t, n_lags),
+            "bf16"),
+        "pss_corr_int8_scaled": (lambda: cc._launch_tc(
+            "pss_corr_int8_scaled", words_i, packed_i, out_b, n_t, n_lags,
+            float(inv)), "int8"),
     }
     records = {}
     for name, (kernel, plain, ref_fn, check, library, (bound_ms, by)) \
@@ -428,6 +482,14 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
             "replaces": AB_REPLACES[name], "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": library_ms}
+        if name in bare:
+            launch, precision = bare[name]
+            bare_ms = time_cuda(launch)
+            print(f"{name}: bare launch {bare_ms:.4f} ms, "
+                  f"{bare_ms / bound_ms:.1f}x its bound; wrapper "
+                  f"{ms / bound_ms:.1f}x")
+            records[name].update(tc_rates(name, precision, n_t, n_lags, ms,
+                                          bare_ms))
     return records
 
 
@@ -524,7 +586,9 @@ def phase_benches(counts: dict) -> dict:
     for launched in runs:
         for k, v in launched.items():
             counts[k] = counts.get(k, 0) + v
-    return {"bf16": res["peak_bf16_tflops"], "int8": res["peak_int8_tops"]}
+    return {"bf16": res["peak_bf16_tflops"],
+            "bf16_f32out": res["peak_bf16_f32out_tflops"],
+            "int8": res["peak_int8_tops"]}
 
 
 def expect_cells(cells, label: str) -> None:
@@ -873,8 +937,11 @@ def main() -> int:
     print("TF32: matmul off, cudnn off")
     logs = phase_build()
     ptxas = tc_ptxas(logs["pss_corr_fold"], "pss_corr_fold_kernel",
-                     "pss_corr_fold.cu")
-    map_ptxas = tc_ptxas(logs["pss_corr"], "map_tc_kernel", "pss_corr.cu")
+                     "pss_corr_fold.cu", FOLD_TC)
+    map_ptxas = tc_ptxas(logs["pss_corr"], "map_tc_kernel", "pss_corr.cu",
+                         MAP_TC)
+    print(f"map_tc_kernel resident blocks per SM: "
+          f"{corr_cuda.map_tc_blocks_per_sm()}")
 
     f_set = default_f_search_set(FC, PPM)
     cap_float = two_cell_capture(seed=0, f_off=35e3, fc=FC)
@@ -932,15 +999,19 @@ def main() -> int:
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
-    for precision, rec in records.items():
-        ruler = rulers[precision]
+    # each tensor-core map kernel against its ruler of phase 5b
+    for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
+                     (ab_records["pss_corr_bf16_f32out"], "bf16_f32out"),
+                     (ab_records["pss_corr_int8_scaled"], "int8")):
+        ruler = rulers[key]
         rec["share_of_ruler"] = rec["useful_tflops"] / ruler
+        unit = UNIT["int8" if key == "int8" else "bf16"]
         print(f"{rec['name']}: {rec['useful_tflops']:.1f} useful "
-              f"{UNIT[precision]} (wrapper), "
+              f"{unit} (wrapper), "
               f"{rec['bare_useful_tflops']:.1f} (bare launch): "
               f"{100.0 * rec['share_of_ruler']:.1f}% and "
               f"{100.0 * rec['bare_useful_tflops'] / ruler:.1f}% of this "
-              f"card's ruler {ruler:.1f} (bench_corr_v2 peak)")
+              f"card's {key} ruler {ruler:.1f} (bench_corr_v2 peak)")
     kernels = []
     for rec in (records["bf16"], records["int8"], fold_records["bf16"],
                 fold_records["int8"]):

@@ -1,6 +1,7 @@
 // Tensor-core PSS correlation on a Hankel tile of the capture, shared by
-// the map kernels (pss_corr.cu: pss_corr_bf16, pss_corr_int8) and the
-// fused fold kernels (pss_corr_fold.cu).
+// the map kernels (pss_corr.cu: pss_corr_bf16, pss_corr_bf16_f32out,
+// pss_corr_int8, pss_corr_int8_scaled) and the fused fold kernels
+// (pss_corr_fold.cu).
 //
 // The correlation of one lag tile with one group of templates is a real
 // matrix product on warp-level mma.sync.  M is the lag, K interleaves the

@@ -10,31 +10,32 @@
 //   pss_corr_bf16          _corr_kernel_v2 (:407) and _corr_kernel_v3
 //                          (:429) with bf16 output: bf16 operands, f32
 //                          accumulation, p stored as bf16 (RNE).
+//   pss_corr_bf16_f32out   v1 with bf16 bands and v3 with f32 output:
+//                          bf16 operands, f32 accumulation, f32 out.
 //   pss_corr_int8          _corr_kernel_v2_int8 (:416): int8 operands,
 //                          int32 accumulation, p stored UNSCALED as bf16.
-//                          These two take the capture words and packed
-//                          taps of the tensor-core loop (below); the
-//                          others take (re, im) planes.
-//   pss_corr_f32           _corr_kernel (v1, :67) with f32 bands, and v2
-//                          with f32 bands: f32 planes, f32 FMA, f32 out.
-//   pss_corr_bf16_f32out   v1 with bf16 bands and v3 with f32 output:
-//                          bf16 planes, f32 accumulation, f32 out.
 //   pss_corr_int8_scaled   tools/bench_corr_v2.py::_kern_i8 (:355): the
 //                          int8 sums, p = (re*re + im*im) * inv in f32
 //                          with inv = (1 / (128 s_g))^2, stored as bf16.
+//                          These four run on the tensor cores and take
+//                          the capture words and packed taps (below).
+//   pss_corr_f32           _corr_kernel (v1, :67) with f32 bands, and v2
+//                          with f32 bands: f32 planes, f32 FMA, f32 out.
 //   pss_corr_sum_bf16      tools/bench_corr_v2.py::_sum_kernel (:205): the
 //                          bf16 correlation with the |.|^2 epilogue summed
 //                          in the kernel; no power map is written (see
 //                          sum_kernel below for the sums it keeps).
+//                          These two run on the CUDA cores and take
+//                          (re, im) planes.
 //
 // Quantization contract: bf16 operands are the capture and template planes
 // rounded to bf16 (RNE); int8 operands are k = clip(round_half_even(128 x),
 // -127, 127) and taps round(t * s_g) with s_g = 127 / max(|Re|, |Im|) over
 // all templates.  int32 sums satisfy |sum| <= 137*127*127*2 < 2^24, so the
-// conversion to f32 is exact.  Every epilogue squares and sums in f32 with
-// explicit round-to-nearest intrinsics (no FMA contraction), so the plain
-// PyTorch versions, which fix the rounding order, agree bit for bit on the
-// int8 routes.
+// conversion to f32 is exact.  Every epilogue squares, sums and scales in
+// f32 with explicit round-to-nearest intrinsics (no FMA contraction), so
+// the plain PyTorch versions, which fix the rounding order, agree bit for
+// bit on the int8 routes.
 //
 // What bounds them on this card: at T = 93, n_lags = 153464 the useful work
 // is 93 * 153464 * 137 * 4 = 7.8 G real multiply-adds (15.6 GFLOP).  On the
@@ -46,40 +47,42 @@
 //
 // Two loops serve the entry points.
 //
-// The bf16 map of pss_corr_bf16 and the UNSCALED map of pss_corr_int8 run
-// on the tensor cores (map_tc_kernel): the Hankel product of
-// hankel_mma.cuh (mma.sync m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32) with
-// FOUR templates in each n8 column group, column 2q Re and 2q + 1 Im of
-// template 4n + q (B packed by `pack_map_taps` in ops/corr_cuda.py, zero
-// only past T).  At T = 93 that is 24 groups, and 93/96 * 137/144 = 92% of
-// the padded tensor-core work is useful.  A block of 8 warps holds 8
-// groups' B fragments (32 templates) in registers and walks lag tiles of
-// 256 (16 m-tiles per warp, every warp on the same lags): each tile's
-// capture span (256 lags + 143 taps, 400 words of `capture_words`) is
-// copied with cp.async into one of two buffers while the other tile
-// computes, with one block barrier per tile.  The grid holds as many
-// blocks as the card keeps resident and each walks every gridDim.x-th
-// tile.  The epilogue squares in the lane's registers (the int8 sums are
-// exact, so the map is bit-equal to its plain version), writes bf16 powers
-// into the warp's 4 rows of a [32 template][256 lag] shared tile, and the
-// warp stores them with 16-byte coalesced stores (the 28.5 MB map is what
-// bounds int8) while other warps compute.  Ragged lag tiles and templates
-// past T are masked.
+// The four tensor-core entry points run one kernel template
+// (map_tc_kernel<trait, epilogue>): the Hankel product of hankel_mma.cuh
+// (mma.sync m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32) with FOUR templates
+// in each n8 column group, column 2q Re and 2q + 1 Im of template 4n + q
+// (B packed by `pack_map_taps` in ops/corr_cuda.py, zero only past T).  At
+// T = 93 that is 24 groups, and 93/96 * 137/144 = 92% of the padded
+// tensor-core work is useful.  A block of 8 warps holds 8 groups' B
+// fragments (32 templates) in registers and walks lag tiles of 256 (16
+// m-tiles per warp, every warp on the same lags): each tile's capture span
+// (256 lags + 143 taps, 400 words of `capture_words`) is copied with
+// cp.async into one of two buffers while the other tile computes, with one
+// block barrier per tile.  The grid holds as many blocks as the card keeps
+// resident and each walks every gridDim.x-th tile.  The epilogue (bf16
+// power, f32 power, or bf16 power times inv) runs in the lane's registers
+// (the int8 sums are exact, so the int8 maps are bit-equal to their plain
+// versions), writes the entries into the warp's 4 rows of a [32 template]
+// [256 lag] shared tile of the output type, and the warp stores them with
+// 16-byte coalesced stores (the 28.5 MB bf16 map bounds int8, the 57 MB
+// f32 map bounds the f32 output) while other warps compute.  The tile's
+// pitch, 264 entries, keeps the lanes' stores conflict-free: 264 f32 words
+// are 8 banks mod 32, so lane (g, q) hits bank 8q + g.  The f32 tile is
+// 33.8 KB, plus 3.2 KB of spans, under the 48 KB of static shared memory.
+// Ragged lag tiles and templates past T are masked.
 //
-// The other four entry points (f32 operands or f32 output, the scaled int8
-// probe, the sum probe) run on the CUDA cores (map_kernel, sum_kernel).
-// The TPU kernels' band matrices only exist to feed a 128-lane matrix unit
-// -- v2/v3's im2col matrix (W = 120 lags x K = 256 samples per row, 23 MB
-// of mostly-zero bands), v1's three 128 x 128 Toeplitz planes per template
-// (12 real dots), and v3's in-kernel transpose, which only produces the
-// [template, lag] layout that these kernels write directly.  There each
-// block stages the capture span of its 256-lag tile plus its 16 templates'
-// 137 taps in shared memory and every thread keeps a 4-lag x 4-template
-// register tile, so each tap step does 8 shared loads for 64
-// multiply-adds.  Warps share one template row (broadcast loads) and walk
-// consecutive lags (conflict-free loads).  The ragged last lag tile and
-// the padded template rows are masked.  Only the operand type and the
-// epilogue differ between those four.
+// pss_corr_f32 and the sum probe run on the CUDA cores (map_kernel,
+// sum_kernel).  The TPU kernels' band matrices only exist to feed a
+// 128-lane matrix unit -- v2/v3's im2col matrix (W = 120 lags x K = 256
+// samples per row, 23 MB of mostly-zero bands), v1's three 128 x 128
+// Toeplitz planes per template (12 real dots), and v3's in-kernel
+// transpose, which only produces the [template, lag] layout that these
+// kernels write directly.  There each block stages the capture span of its
+// 256-lag tile plus its 16 templates' 137 taps in shared memory and every
+// thread keeps a 4-lag x 4-template register tile, so each tap step does 8
+// shared loads for 64 multiply-adds.  Warps share one template row
+// (broadcast loads) and walk consecutive lags (conflict-free loads).  The
+// ragged last lag tile and the padded template rows are masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,22 +117,6 @@ __device__ __forceinline__ float load_elem(const __nv_bfloat16* p,
   return __bfloat162float(p[i]);
 }
 
-__device__ __forceinline__ int load_elem(const int8_t* p, size_t i) {
-  return static_cast<int>(p[i]);
-}
-
-__device__ __forceinline__ float mac(float acc, float a, float b) {
-  return fmaf(a, b, acc);
-}
-
-__device__ __forceinline__ int mac(int acc, int a, int b) {
-  return acc + a * b;
-}
-
-__device__ __forceinline__ float as_float(float x) { return x; }
-
-__device__ __forceinline__ float as_float(int x) { return __int2float_rn(x); }
-
 __device__ __forceinline__ float power(float fr, float fi) {
   return __fadd_rn(__fmul_rn(fr, fr), __fmul_rn(fi, fi));
 }
@@ -138,31 +125,31 @@ __device__ __forceinline__ float power(float fr, float fi) {
 // the block's tile: lags l0 + threadIdx.x + 64 j, templates tb +
 // 4 threadIdx.y + i.  cap: [2, n_cap] planes (re, im), zero past n_cap;
 // taps: [2, n_t, 137], zero past n_t.
-template <typename In, typename Acc>
+template <typename In>
 __device__ __forceinline__ void correlate_tile(
     const In* __restrict__ cap, const In* __restrict__ taps, int n_cap,
-    int n_t, int l0, int tb, Acc (&acc_re)[kTmplPerThread][kLagsPerThread],
-    Acc (&acc_im)[kTmplPerThread][kLagsPerThread]) {
-  __shared__ Acc s_re[kSpan];
-  __shared__ Acc s_im[kSpan];
-  __shared__ Acc t_re[kTileTmpl][kTaps];
-  __shared__ Acc t_im[kTileTmpl][kTaps];
+    int n_t, int l0, int tb, float (&acc_re)[kTmplPerThread][kLagsPerThread],
+    float (&acc_im)[kTmplPerThread][kLagsPerThread]) {
+  __shared__ float s_re[kSpan];
+  __shared__ float s_im[kSpan];
+  __shared__ float t_re[kTileTmpl][kTaps];
+  __shared__ float t_im[kTileTmpl][kTaps];
 
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   for (int i = tid; i < kSpan; i += kThreads) {
     const int g = l0 + i;
     const bool ok = g < n_cap;
-    s_re[i] = ok ? load_elem(cap, g) : Acc(0);
-    s_im[i] = ok ? load_elem(cap, static_cast<size_t>(n_cap) + g) : Acc(0);
+    s_re[i] = ok ? load_elem(cap, g) : 0.0f;
+    s_im[i] = ok ? load_elem(cap, static_cast<size_t>(n_cap) + g) : 0.0f;
   }
   for (int i = tid; i < kTileTmpl * kTaps; i += kThreads) {
     const int t = i / kTaps;
     const int m = i - t * kTaps;
     const bool ok = tb + t < n_t;
     const size_t off = static_cast<size_t>(tb + t) * kTaps + m;
-    t_re[t][m] = ok ? load_elem(taps, off) : Acc(0);
+    t_re[t][m] = ok ? load_elem(taps, off) : 0.0f;
     t_im[t][m] = ok ? load_elem(taps, static_cast<size_t>(n_t) * kTaps + off)
-                    : Acc(0);
+                    : 0.0f;
   }
   __syncthreads();
 
@@ -170,8 +157,8 @@ __device__ __forceinline__ void correlate_tile(
   for (int i = 0; i < kTmplPerThread; ++i) {
 #pragma unroll
     for (int j = 0; j < kLagsPerThread; ++j) {
-      acc_re[i][j] = Acc(0);
-      acc_im[i][j] = Acc(0);
+      acc_re[i][j] = 0.0f;
+      acc_im[i][j] = 0.0f;
     }
   }
 
@@ -179,8 +166,8 @@ __device__ __forceinline__ void correlate_tile(
   const int ty = threadIdx.y * kTmplPerThread;
 #pragma unroll 4
   for (int m = 0; m < kTaps; ++m) {
-    Acc xr[kLagsPerThread];
-    Acc xi[kLagsPerThread];
+    float xr[kLagsPerThread];
+    float xi[kLagsPerThread];
 #pragma unroll
     for (int j = 0; j < kLagsPerThread; ++j) {
       xr[j] = s_re[lx + j * kThreadsX + m];
@@ -188,45 +175,29 @@ __device__ __forceinline__ void correlate_tile(
     }
 #pragma unroll
     for (int i = 0; i < kTmplPerThread; ++i) {
-      const Acc tr = t_re[ty + i][m];
-      const Acc ti = t_im[ty + i][m];
+      const float tr = t_re[ty + i][m];
+      const float ti = t_im[ty + i][m];
 #pragma unroll
       for (int j = 0; j < kLagsPerThread; ++j) {
         // re += xr*tr - xi*ti ; im += xr*ti + xi*tr
-        acc_re[i][j] = mac(acc_re[i][j], xr[j], tr);
-        acc_re[i][j] = mac(acc_re[i][j], -xi[j], ti);
-        acc_im[i][j] = mac(acc_im[i][j], xr[j], ti);
-        acc_im[i][j] = mac(acc_im[i][j], xi[j], tr);
+        acc_re[i][j] = fmaf(xr[j], tr, acc_re[i][j]);
+        acc_re[i][j] = fmaf(-xi[j], ti, acc_re[i][j]);
+        acc_im[i][j] = fmaf(xr[j], ti, acc_im[i][j]);
+        acc_im[i][j] = fmaf(xi[j], tr, acc_im[i][j]);
       }
     }
   }
 }
 
-// Epilogues: store one entry of the [n_t, n_lags] map from Re and Im.
-struct PowF32 {
-  float* out;
-  __device__ void operator()(size_t i, float fr, float fi) const {
-    out[i] = power(fr, fi);
-  }
-};
-
-struct ScaledPowBf16 {
-  __nv_bfloat16* out;
-  float inv;
-  __device__ void operator()(size_t i, float fr, float fi) const {
-    out[i] = __float2bfloat16_rn(__fmul_rn(power(fr, fi), inv));
-  }
-};
-
-template <typename In, typename Acc, typename Store>
+// pss_corr_f32's map: out [n_t, n_lags] f32.
 __global__ void __launch_bounds__(kThreads)
-map_kernel(const In* __restrict__ cap, const In* __restrict__ taps,
-           Store store, int n_cap, int n_t, int n_lags) {
+map_kernel(const float* __restrict__ cap, const float* __restrict__ taps,
+           float* __restrict__ out, int n_cap, int n_t, int n_lags) {
   const int l0 = blockIdx.x * kTileLags;
   const int tb = blockIdx.y * kTileTmpl;
-  Acc acc_re[kTmplPerThread][kLagsPerThread];
-  Acc acc_im[kTmplPerThread][kLagsPerThread];
-  correlate_tile<In, Acc>(cap, taps, n_cap, n_t, l0, tb, acc_re, acc_im);
+  float acc_re[kTmplPerThread][kLagsPerThread];
+  float acc_im[kTmplPerThread][kLagsPerThread];
+  correlate_tile<float>(cap, taps, n_cap, n_t, l0, tb, acc_re, acc_im);
 
   const int lx = threadIdx.x;
   const int ty = threadIdx.y * kTmplPerThread;
@@ -238,8 +209,8 @@ map_kernel(const In* __restrict__ cap, const In* __restrict__ taps,
     for (int j = 0; j < kLagsPerThread; ++j) {
       const int l = l0 + lx + j * kThreadsX;
       if (l >= n_lags) continue;
-      store(static_cast<size_t>(t) * n_lags + l, as_float(acc_re[i][j]),
-            as_float(acc_im[i][j]));
+      out[static_cast<size_t>(t) * n_lags + l] =
+          power(acc_re[i][j], acc_im[i][j]);
     }
   }
 }
@@ -266,8 +237,8 @@ sum_kernel(const __nv_bfloat16* __restrict__ cap,
   float acc_im[kTmplPerThread][kLagsPerThread];
   // correlate_tile synchronises the block after staging, so red is zero
   // before any thread adds to it
-  correlate_tile<__nv_bfloat16, float>(cap, taps, n_cap, n_t, l0, tb, acc_re,
-                                       acc_im);
+  correlate_tile<__nv_bfloat16>(cap, taps, n_cap, n_t, l0, tb, acc_re,
+                                acc_im);
 
   const int rb0 = l0 / kRowBlockLags;
   const int lx = threadIdx.x;
@@ -303,19 +274,9 @@ dim3 grid_for(int n_t, int n_lags) {
               (n_t + kTileTmpl - 1) / kTileTmpl);
 }
 
-template <typename In, typename Acc, typename Store>
-int launch(const void* cap, const void* taps, Store store, int n_cap,
-           int n_t, int n_lags, void* stream) {
-  map_kernel<In, Acc, Store><<<grid_for(n_t, n_lags),
-                               dim3(kThreadsX, kThreadsY), 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const In*>(cap), static_cast<const In*>(taps), store,
-      n_cap, n_t, n_lags);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// The tensor-core loop: the bf16 map and the UNSCALED int8 map.
+// The tensor-core loop: the bf16 map, the f32 map, the UNSCALED int8 map
+// and the scaled int8 map.
 
 constexpr int kTcWarps = 8;                    // column groups per block
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -324,21 +285,46 @@ constexpr int kTcLags = hankel::kTileLags;     // 256 lags per tile
 // words per staged span: 256 lags + 143 taps in whole 16-byte chunks (the
 // span starts at word l0 + 4, a multiple of 4)
 constexpr int kTcSpan = (kTcLags + hankel::kTapsPad - 1 + 3) / 4 * 4;
-constexpr int kTcPitch = kTcLags + 8;          // bf16 per staged output row:
-                                               // conflict-free epilogue stores
+constexpr int kTcPitch = kTcLags + 8;          // entries per staged output
+                                               // row: conflict-free stores
+
+// Epilogues: one map entry of type Out from the f32 Re and Im.
+struct PowBf16 {
+  using Out = __nv_bfloat16;
+  __device__ __forceinline__ Out operator()(float fr, float fi) const {
+    return __float2bfloat16_rn(power(fr, fi));
+  }
+};
+
+struct PowF32 {
+  using Out = float;
+  __device__ __forceinline__ Out operator()(float fr, float fi) const {
+    return power(fr, fi);
+  }
+};
+
+struct ScaledPowBf16 {
+  using Out = __nv_bfloat16;
+  float inv;
+  __device__ __forceinline__ Out operator()(float fr, float fi) const {
+    return __float2bfloat16_rn(__fmul_rn(power(fr, fi), inv));
+  }
+};
 
 // words: [n_words] capture words (capture_words: sample s at word s + 4,
 // zero past the capture); taps: [ceil(n_t / 4), 8, 288] packed B columns
-// (pack_map_taps) as 32-bit words; out: [n_t, n_lags] bf16.
-template <class Tr>
+// (pack_map_taps) as 32-bit words; out: [n_t, n_lags] of Ep::Out.
+template <class Tr, class Ep>
 __global__ void __launch_bounds__(kTcThreads)
 map_tc_kernel(const uint32_t* __restrict__ words,
               const uint32_t* __restrict__ taps,
-              __nv_bfloat16* __restrict__ out, int n_words, int n_t,
-              int n_lags) {
+              typename Ep::Out* __restrict__ out, Ep ep, int n_words,
+              int n_t, int n_lags) {
   using Acc = typename Tr::Acc;
+  using Out = typename Ep::Out;
+  constexpr int kChunk = 16 / sizeof(Out);     // entries per 16-byte store
   __shared__ __align__(16) uint32_t span[2][kTcSpan];
-  __shared__ __align__(16) __nv_bfloat16 tile[kTcTmpl][kTcPitch];
+  __shared__ __align__(16) Out tile[kTcTmpl][kTcPitch];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -347,14 +333,14 @@ map_tc_kernel(const uint32_t* __restrict__ words,
   const int group = blockIdx.y * kTcWarps + warp;
   const bool active = group < (n_t + 3) / 4;   // warp-uniform
   // whole rows go out as 16-byte stores when every row start is aligned
-  const bool wide = (n_lags & 7) == 0
+  const bool wide = n_lags % kChunk == 0
                     && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
   // the group's B fragments, resident for every tile
   uint32_t b[Tr::kSteps][2];
   hankel::load_b<Tr>(taps, active ? group : 0, g, q, b);
   // the warp's 4 rows of the staged output tile (templates 4 group + r)
-  __nv_bfloat16(*rows)[kTcPitch] = tile + 4 * warp;
+  Out(*rows)[kTcPitch] = tile + 4 * warp;
 
   int l0 = blockIdx.x * kTcLags;
   hankel::stage<kTcThreads>(span[0], words, l0 + hankel::kGuard, n_words,
@@ -383,20 +369,20 @@ map_tc_kernel(const uint32_t* __restrict__ words,
       for (int i = 0; i < hankel::kTiles; ++i) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          rows[q][16 * i + 8 * h + g] = __float2bfloat16_rn(
-              power(Tr::to_f32(acc[i][2 * h]), Tr::to_f32(acc[i][2 * h + 1])));
+          rows[q][16 * i + 8 * h + g] =
+              ep(Tr::to_f32(acc[i][2 * h]), Tr::to_f32(acc[i][2 * h + 1]));
         }
       }
       __syncwarp();
       // the warp's rows, masked past n_t and n_lags
       const int n_rows = min(4, n_t - 4 * group);
       const int cols = min(kTcLags, n_lags - l0);
-      __nv_bfloat16* o = out + static_cast<size_t>(4 * group) * n_lags + l0;
+      Out* o = out + static_cast<size_t>(4 * group) * n_lags + l0;
       if (wide && cols == kTcLags) {
-        constexpr int kChunks = kTcLags / 8;   // 16-byte chunks per row
+        constexpr int kChunks = kTcLags / kChunk;   // 16-byte chunks per row
         for (int e = lane; e < n_rows * kChunks; e += 32) {
           const int r = e / kChunks;
-          const int c = 8 * (e % kChunks);
+          const int c = kChunk * (e % kChunks);
           *reinterpret_cast<uint4*>(o + static_cast<size_t>(r) * n_lags + c)
               = *reinterpret_cast<const uint4*>(&rows[r][c]);
         }
@@ -412,22 +398,26 @@ map_tc_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+template <class Tr, class Ep>
+cudaError_t tc_blocks_per_sm(int* per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, map_tc_kernel<Tr, Ep>, kTcThreads, 0);
+}
+
 // As many blocks as the card keeps resident, each walking every
 // gridDim.x-th lag tile of its 32 templates.
-template <class Tr>
-int launch_tc(const void* words, const void* taps, void* out, int n_words,
-              int n_t, int n_lags, void* stream) {
-  static int slots = 0;             // resident blocks on the card
+template <class Tr, class Ep>
+int launch_tc(const void* words, const void* taps, void* out, Ep ep,
+              int n_words, int n_t, int n_lags, void* stream) {
+  static int slots = 0;             // resident blocks on the card, per
+                                    // instance
   if (slots == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, map_tc_kernel<Tr>, kTcThreads, 0);
-    }
+    if (err == cudaSuccess) err = tc_blocks_per_sm<Tr, Ep>(&per_sm);
     if (err != cudaSuccess) return static_cast<int>(err);
     slots = max(1, sms * per_sm);
   }
@@ -435,49 +425,68 @@ int launch_tc(const void* words, const void* taps, void* out, int n_words,
   const int n_groups = (n_t + 3) / 4;
   const int gy = (n_groups + kTcWarps - 1) / kTcWarps;
   const dim3 grid(max(1, min(n_tiles, slots / gy)), gy);
-  map_tc_kernel<Tr><<<grid, kTcThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  map_tc_kernel<Tr, Ep><<<grid, kTcThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(taps),
-      static_cast<__nv_bfloat16*>(out), n_words, n_t, n_lags);
+      static_cast<typename Ep::Out*>(out), ep, n_words, n_t, n_lags);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // words: capture_words of one capture, [n_words] 32-bit words; taps:
-// pack_map_taps of the n_t templates; out: [n_t, n_lags] bf16.
+// pack_map_taps of the n_t templates; out: [n_t, n_lags] bf16 (f32 for
+// pss_corr_bf16_f32out).
 extern "C" int pss_corr_bf16(const void* words, const void* taps, void* out,
                              int n_words, int n_t, int n_lags, void* stream) {
-  return launch_tc<hankel::Bf16>(words, taps, out, n_words, n_t, n_lags,
-                                 stream);
+  return launch_tc<hankel::Bf16>(words, taps, out, PowBf16{}, n_words, n_t,
+                                 n_lags, stream);
 }
 
 extern "C" int pss_corr_int8(const void* words, const void* taps, void* out,
                              int n_words, int n_t, int n_lags, void* stream) {
-  return launch_tc<hankel::Int8>(words, taps, out, n_words, n_t, n_lags,
-                                 stream);
+  return launch_tc<hankel::Int8>(words, taps, out, PowBf16{}, n_words, n_t,
+                                 n_lags, stream);
+}
+
+extern "C" int pss_corr_bf16_f32out(const void* words, const void* taps,
+                                    void* out, int n_words, int n_t,
+                                    int n_lags, void* stream) {
+  return launch_tc<hankel::Bf16>(words, taps, out, PowF32{}, n_words, n_t,
+                                 n_lags, stream);
+}
+
+extern "C" int pss_corr_int8_scaled(const void* words, const void* taps,
+                                    void* out, int n_words, int n_t,
+                                    int n_lags, float inv, void* stream) {
+  return launch_tc<hankel::Int8>(words, taps, out, ScaledPowBf16{inv},
+                                 n_words, n_t, n_lags, stream);
+}
+
+// The resident blocks per SM of the four tensor-core instances, in the
+// order pss_corr_bf16, pss_corr_int8, pss_corr_bf16_f32out,
+// pss_corr_int8_scaled (what launch_tc sizes its grid from).
+extern "C" int pss_corr_map_tc_occupancy(int* per_sm) {
+  cudaError_t err = tc_blocks_per_sm<hankel::Bf16, PowBf16>(per_sm);
+  if (err == cudaSuccess) {
+    err = tc_blocks_per_sm<hankel::Int8, PowBf16>(per_sm + 1);
+  }
+  if (err == cudaSuccess) {
+    err = tc_blocks_per_sm<hankel::Bf16, PowF32>(per_sm + 2);
+  }
+  if (err == cudaSuccess) {
+    err = tc_blocks_per_sm<hankel::Int8, ScaledPowBf16>(per_sm + 3);
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int pss_corr_f32(const void* cap, const void* taps, void* out,
                             int n_cap, int n_t, int n_lags, void* stream) {
-  return launch<float, float>(cap, taps, PowF32{static_cast<float*>(out)},
-                              n_cap, n_t, n_lags, stream);
-}
-
-extern "C" int pss_corr_bf16_f32out(const void* cap, const void* taps,
-                                    void* out, int n_cap, int n_t,
-                                    int n_lags, void* stream) {
-  return launch<__nv_bfloat16, float>(
-      cap, taps, PowF32{static_cast<float*>(out)}, n_cap, n_t, n_lags,
-      stream);
-}
-
-extern "C" int pss_corr_int8_scaled(const void* cap, const void* taps,
-                                    void* out, int n_cap, int n_t,
-                                    int n_lags, float inv, void* stream) {
-  return launch<int8_t, int>(
-      cap, taps, ScaledPowBf16{static_cast<__nv_bfloat16*>(out), inv}, n_cap,
-      n_t, n_lags, stream);
+  map_kernel<<<grid_for(n_t, n_lags), dim3(kThreadsX, kThreadsY), 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cap), static_cast<const float*>(taps),
+      static_cast<float*>(out), n_cap, n_t, n_lags);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // n_lags: whole row blocks (a multiple of 15360); sums: zeroed

@@ -82,10 +82,11 @@ _ROUTES = {("v2", "bf16"): (torch.bfloat16, torch.float32),
 
 @dataclass
 class KernelOperands:
-    """Quantized operands of one CUDA correlation route.  A bf16 map from
-    bf16 or int8 operands runs on the tensor-core kernels, whose packed
-    taps (``corr_cuda.pack_map_taps``) are made here once, so that each
-    capture only builds its words."""
+    """Quantized operands of one CUDA correlation route.  Every map of
+    bf16 or int8 operands (bf16 or f32) runs on the tensor-core kernels,
+    whose packed taps (``corr_cuda.pack_map_taps``) are made here once, so
+    that each capture only builds its words; f32 operands keep their
+    planes."""
     precision: str                  # "bf16", "int8" or "f32"
     taps: torch.Tensor              # [2, T, 137] template planes
     power_scale: Optional[float]    # int8 only: restores capture units
@@ -99,7 +100,7 @@ class KernelOperands:
                                              ()):
             raise ValueError(f"no {self.route} route with {self.precision} "
                              f"operands and a {self.out_dtype} map")
-        if self.out_dtype == torch.bfloat16:
+        if self.precision != "f32":
             self.packed = corr_cuda.pack_map_taps(self.taps)
 
 

@@ -6,9 +6,10 @@ The counterpart of the TPU package's correlation routes that produce the
 templates and all lags, p[t, l] = |sum_m tmpl[t, m] * cap[l + m]|^2.
 
 - ``corr_pow_bf16`` replaces ``_corr_kernel_v2`` (the production route,
-  bf16 map) and ``_corr_kernel_v3``: bf16 operands, f32 accumulation;
-  ``out_dtype=torch.float32`` (``pss_corr_bf16_f32out``) is v1 with bf16
-  bands and v3 with f32 output.  Float and simulated captures.
+  bf16 map: ``pss_corr_bf16``) and ``_corr_kernel_v3``: bf16 operands,
+  f32 accumulation; ``out_dtype=torch.float32`` (``pss_corr_bf16_f32out``)
+  is v1 with bf16 bands and v3 with f32 output.  Float and simulated
+  captures.
 - ``corr_pow_f32`` replaces v1 (``_corr_kernel``) and v2 with f32 bands:
   f32 operands and sums, f32 map.
 - ``corr_pow_int8`` replaces ``_corr_kernel_v2_int8``: int8 operands,
@@ -23,15 +24,17 @@ templates and all lags, p[t, l] = |sum_m tmpl[t, m] * cap[l + m]|^2.
 - ``corr_pow_bf16_per_chunk`` is that tool's per-chunk probe: the bf16
   kernel launched once per chunk of templates.
 
-The bf16 map (``pss_corr_bf16``) and the int8 map (``pss_corr_int8``)
-run on the tensor cores: the Hankel product of ``csrc/hankel_mma.cuh``
-(shared with the fused kernels of ``ops/corr_fold_cuda.py``) of the
-capture's 32-bit words (``capture_words``) and the packed taps of four
-templates per n8 column group (``pack_map_taps``).  The wrapper builds
-the words for each call and packs the taps unless the caller passes
-them packed (``KernelOperands.packed`` in ``models/xcorr.py`` packs them
-once).  The other entry points take (re, im) planes and run on the CUDA
-cores.
+Every map of bf16 or int8 operands (``pss_corr_bf16``,
+``pss_corr_bf16_f32out``, ``pss_corr_int8``, ``pss_corr_int8_scaled``)
+runs on the tensor cores: one kernel template, the Hankel product of
+``csrc/hankel_mma.cuh`` (shared with the fused kernels of
+``ops/corr_fold_cuda.py``) of the capture's 32-bit words
+(``capture_words``) and the packed taps of four templates per n8 column
+group (``pack_map_taps``), with the entry point's epilogue.  The wrapper
+builds the words for each call and packs the taps unless the caller
+passes them packed (``KernelOperands.packed`` in ``models/xcorr.py``
+packs them once).  ``pss_corr_f32`` and ``pss_corr_sum_bf16`` take
+(re, im) planes and run on the CUDA cores.
 
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
 error) and takes the plain version only for CPU tensors.  ``LAUNCHES``
@@ -289,8 +292,10 @@ def corr_pow_sum_bf16_plain(cap: torch.Tensor, taps: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _lib = None
-_MAP_ENTRIES = ("pss_corr_bf16", "pss_corr_int8", "pss_corr_f32",
-                "pss_corr_bf16_f32out", "pss_corr_sum_bf16")
+# the tensor-core entry points, in the order of pss_corr_map_tc_occupancy
+MAP_TC_ENTRIES = ("pss_corr_bf16", "pss_corr_int8", "pss_corr_bf16_f32out",
+                  "pss_corr_int8_scaled")
+_PLANE_ENTRIES = ("pss_corr_f32", "pss_corr_sum_bf16")
 
 
 def _kernels():
@@ -300,14 +305,25 @@ def _kernels():
         lib = load("pss_corr")
         head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        for name in _MAP_ENTRIES:
-            getattr(lib, name).argtypes = head + [ctypes.c_void_p]
-        lib.pss_corr_int8_scaled.argtypes = head + [ctypes.c_float,
-                                                    ctypes.c_void_p]
-        for name in _MAP_ENTRIES + ("pss_corr_int8_scaled",):
+        for name in MAP_TC_ENTRIES + _PLANE_ENTRIES:
+            inv = [ctypes.c_float] if name == "pss_corr_int8_scaled" else []
+            getattr(lib, name).argtypes = head + inv + [ctypes.c_void_p]
             getattr(lib, name).restype = ctypes.c_int
+        lib.pss_corr_map_tc_occupancy.argtypes = [ctypes.c_void_p]
+        lib.pss_corr_map_tc_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def map_tc_blocks_per_sm() -> dict:
+    """Resident blocks per SM of each tensor-core entry point on the
+    current card, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives them (each launch sizes its grid from this)."""
+    per_sm = (ctypes.c_int * len(MAP_TC_ENTRIES))()
+    err = _kernels().pss_corr_map_tc_occupancy(per_sm)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return dict(zip(MAP_TC_ENTRIES, per_sm))
 
 
 def _check(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
@@ -357,23 +373,23 @@ def _run(name: str, device: torch.device, out: torch.Tensor, *args,
 
 
 def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
-            out: torch.Tensor, n_lags: int, *extra,
-            count: Optional[str] = None) -> torch.Tensor:
+            out: torch.Tensor, n_lags: int) -> torch.Tensor:
     """A CUDA-core entry point on (re, im) planes."""
     return _run(name, cap.device, out, cap.data_ptr(), taps.data_ptr(),
                 out.data_ptr(), int(cap.shape[1]), int(taps.shape[1]),
-                int(n_lags), *extra, count=count)
+                int(n_lags))
 
 
 def _launch_tc(name: str, words: torch.Tensor, packed: torch.Tensor,
-               out: torch.Tensor, n_t: int, n_lags: int,
+               out: torch.Tensor, n_t: int, n_lags: int, *extra,
                count: Optional[str] = None) -> torch.Tensor:
     """A tensor-core entry point on one capture's words [n_w, 2 or 4]
     (``capture_words``) and the packed taps of n_t templates
-    (``pack_map_taps``): the bare launch, without building operands."""
+    (``pack_map_taps``), ``extra`` after n_lags (the scaled map's inv): the
+    bare launch, without building operands."""
     return _run(name, words.device, out, words.data_ptr(), packed.data_ptr(),
                 out.data_ptr(), int(words.shape[0]), int(n_t), int(n_lags),
-                count=count)
+                *extra, count=count)
 
 
 def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
@@ -382,14 +398,16 @@ def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
 
 
 def _launch_map(name: str, cap: torch.Tensor, taps: torch.Tensor,
-                n_lags: int, packed: Optional[torch.Tensor]) -> torch.Tensor:
-    """The bf16 map of a tensor-core entry point: the capture's words
+                n_lags: int, packed: Optional[torch.Tensor],
+                dtype: torch.dtype, *extra) -> torch.Tensor:
+    """The ``dtype`` map of a tensor-core entry point: the capture's words
     built here, the taps packed here unless ``packed`` is given."""
     words = capture_words(cap[None])[0]
     if packed is None:
         packed = pack_map_taps(taps)
-    out = _map(taps, n_lags, torch.bfloat16)
-    return _launch_tc(name, words, packed, out, taps.shape[1], n_lags)
+    out = _map(taps, n_lags, dtype)
+    return _launch_tc(name, words, packed, out, taps.shape[1], n_lags,
+                      *extra)
 
 
 def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
@@ -397,24 +415,21 @@ def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Correlation-power map [T, n_lags] from bf16 capture planes [2, n]
     and template planes [2, T, 137], stored as ``out_dtype``: bf16
-    (``pss_corr_bf16``, tensor cores; ``packed``: the taps already
-    packed by ``pack_map_taps``) or f32 (``pss_corr_bf16_f32out``)."""
+    (``pss_corr_bf16``) or f32 (``pss_corr_bf16_f32out``), both on the
+    tensor cores; ``packed``: the taps already packed by
+    ``pack_map_taps``."""
     _check(cap, taps, n_lags, torch.bfloat16)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bfloat16 or float32, got "
                          f"{out_dtype}")
     if packed is not None:
-        if out_dtype != torch.bfloat16:
-            raise ValueError("packed taps serve the bf16 map only")
         _check_packed(packed, taps)
-    if out_dtype == torch.float32:
-        if cap.device.type == "cpu":
-            return corr_pow_f32_plain(cap, taps, n_lags)
-        return _launch("pss_corr_bf16_f32out", cap, taps,
-                       _map(taps, n_lags, torch.float32), n_lags)
+    f32 = out_dtype == torch.float32
     if cap.device.type == "cpu":
-        return corr_pow_bf16_plain(cap, taps, n_lags)
-    return _launch_map("pss_corr_bf16", cap, taps, n_lags, packed)
+        plain = corr_pow_f32_plain if f32 else corr_pow_bf16_plain
+        return plain(cap, taps, n_lags)
+    return _launch_map("pss_corr_bf16_f32out" if f32 else "pss_corr_bf16",
+                       cap, taps, n_lags, packed, out_dtype)
 
 
 def corr_pow_bf16_per_chunk(cap: torch.Tensor, taps: torch.Tensor,
@@ -472,19 +487,24 @@ def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
         _check_packed(packed, taps)
     if cap.device.type == "cpu":
         return corr_pow_int8_plain(cap, taps, n_lags)
-    return _launch_map("pss_corr_int8", cap, taps, n_lags, packed)
+    return _launch_map("pss_corr_int8", cap, taps, n_lags, packed,
+                       torch.bfloat16)
 
 
 def corr_pow_int8_scaled(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
-                         inv) -> torch.Tensor:
+                         inv, packed: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """int8 correlation-power map [T, n_lags] times ``inv`` (an f32 power
-    scale, (1 / (128 s_g))^2 to restore capture units), stored as bf16."""
+    scale, (1 / (128 s_g))^2 to restore capture units), stored as bf16
+    (``pss_corr_int8_scaled``, tensor cores; ``packed``: the taps already
+    packed by ``pack_map_taps``)."""
     _check(cap, taps, n_lags, torch.int8)
+    if packed is not None:
+        _check_packed(packed, taps)
     if cap.device.type == "cpu":
         return corr_pow_int8_scaled_plain(cap, taps, n_lags, inv)
-    return _launch("pss_corr_int8_scaled", cap, taps,
-                   _map(taps, n_lags, torch.bfloat16), n_lags,
-                   ctypes.c_float(np.float32(inv)))
+    return _launch_map("pss_corr_int8_scaled", cap, taps, n_lags, packed,
+                       torch.bfloat16, float(np.float32(inv)))
 
 
 def corr_pow_sum_bf16(cap: torch.Tensor, taps: torch.Tensor,

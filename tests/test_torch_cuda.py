@@ -128,16 +128,60 @@ def test_packed_taps_of_kernel_operands_give_the_same_map(cuda, adc):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+@pytest.mark.parametrize("adc", [False, True],
+                         ids=["bf16_f32out", "int8_scaled"])
+def test_packed_taps_of_kernel_operands_give_the_same_f32_and_scaled_maps(
+        cuda, adc):
+    """The f32 map of the v1 route's operands and the int8 probe's scaled
+    map: KernelOperands' packed taps and the wrapper's own packing give
+    the same map, bit for bit, at full width."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import (_front_staging,
+                                                         v1_operands)
+    cap = two_cell_capture()
+    if adc:
+        cap = adc_quantize(cap)
+    cap_t, tmpl, _starts, kern, _n = _front_staging(
+        cap, default_f_search_set(FC, 100.0), FC, FC, FS, "auto", cuda, None,
+        True)
+    n_lags = cap_t.shape[0] - 136
+    tmpl = tmpl.reshape(-1, 137).cpu().numpy()
+    if adc:
+        planes = corr_cuda.capture_planes_int8(cap_t)
+        inv = corr_cuda.probe_inv(tmpl)
+        name, bits = "pss_corr_int8_scaled", torch.int16
+
+        def run(packed):
+            return corr_cuda.corr_pow_int8_scaled(planes, kern.taps, n_lags,
+                                                  inv, packed)
+    else:
+        kern = v1_operands(tmpl, "bf16", cuda)
+        planes = corr_cuda.capture_planes_bf16(cap_t)
+        name, bits = "pss_corr_bf16_f32out", torch.int32
+
+        def run(packed):
+            return corr_cuda.corr_pow_bf16(planes, kern.taps, n_lags,
+                                           torch.float32, packed)
+    corr_cuda.reset_launch_counts()
+    got = run(kern.packed)
+    want = run(None)
+    torch.cuda.synchronize()
+    assert _launched() == {name: 2}
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 RAGGED = [(1, 137 + 5), (3, 9600 + 401), (7, 2 * 9600 + 777)]
+# pss_corr_f32 on the CUDA cores at the ragged shapes; the tensor-core
+# pss_corr_bf16_f32out at the map kernels' shapes and full width
+F32_MAP_CASES = [("f32", 3 * n_f, n_cap) for n_f, n_cap in RAGGED] \
+    + [("bf16", n_t, n_cap) for n_t, n_cap in MAP_SHAPES]
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("n_f,n_cap", RAGGED)
-def test_f32_map_kernels_match_their_plain_version(cuda, precision, n_f,
+@pytest.mark.parametrize("precision,n_t,n_cap", F32_MAP_CASES)
+def test_f32_map_kernels_match_their_plain_version(cuda, precision, n_t,
                                                    n_cap):
     """pss_corr_f32 and pss_corr_bf16_f32out: f32 sums of the same
     operands in another order, within 1e-5 x the map's max."""
-    cap, taps = _operands(precision, n_f, n_cap, 5 + n_f, cuda)
+    cap, taps = _map_operands(precision, n_t, n_cap, 5 + n_t, cuda)
     n_lags = n_cap - 136
     corr_cuda.reset_launch_counts()
     if precision == "f32":
@@ -153,13 +197,16 @@ def test_f32_map_kernels_match_their_plain_version(cuda, precision, n_f,
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.max())
 
 
-@pytest.mark.parametrize("n_f,n_cap", RAGGED)
-def test_int8_scaled_kernel_is_bit_equal_to_its_plain_version(cuda, n_f,
+@pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
+def test_int8_scaled_kernel_is_bit_equal_to_its_plain_version(cuda, n_t,
                                                               n_cap):
-    cap, taps = _operands("int8", n_f, n_cap, 8 + n_f, cuda)
-    inv = corr_cuda.probe_inv(pss_templates(np.arange(n_f) * 5e3, FC, FC,
-                                            FS).reshape(-1, 137))
+    cap, taps = _map_operands("int8", n_t, n_cap, 8 + n_t, cuda)
+    inv = corr_cuda.probe_inv(pss_templates(
+        np.arange(-(-n_t // 3)) * 5e3, FC, FC, FS).reshape(-1, 137))
+    corr_cuda.reset_launch_counts()
     got = corr_cuda.corr_pow_int8_scaled(cap, taps, n_cap - 136, inv)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_int8_scaled": 1}
     ref = corr_cuda.corr_pow_int8_scaled_plain(cap, taps, n_cap - 136, inv)
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 

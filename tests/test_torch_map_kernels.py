@@ -1,14 +1,16 @@
-"""The operands of the port's tensor-core map kernels (pss_corr_bf16 and
-pss_corr_int8 in lte_cell_scanner_tpu_torch/csrc/pss_corr.cu) on the CPU.
+"""The operands of the port's tensor-core map kernels (pss_corr_bf16,
+pss_corr_bf16_f32out, pss_corr_int8 and pss_corr_int8_scaled in
+lte_cell_scanner_tpu_torch/csrc/pss_corr.cu) on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py and
 chip_smoke.py hold them against their plain versions there).  Here the
 kernels' arithmetic is emulated in float64 on their own operands -- the
 Hankel matrix read from ``capture_words`` times ``pack_map_taps`` -- with
-the kernels' epilogue, and held against the plain versions, which
-tests/test_torch_corr_kernels.py holds against the TPU package's v2
-Pallas kernels in interpret mode; one case here also meets the Pallas
-int8 kernel directly.  Inputs are made with numpy from fixed seeds.
+each kernel's epilogue, and held against the plain versions, which
+tests/test_torch_corr_kernels.py and tests/test_torch_ab_kernels.py hold
+against the TPU package's Pallas kernels in interpret mode; two cases
+here also meet the Pallas int8 v2 kernel and the v3 kernel directly.
+Inputs are made with numpy from fixed seeds.
 """
 
 import jax.numpy as jnp
@@ -65,13 +67,15 @@ def _operands(precision, n_t, n_cap, seed):
             tc.template_planes_bf16(tmpl, CPU))
 
 
-def _hankel_map(words, packed, n_t, n_lags):
+def _hankel_map(words, packed, n_t, n_lags, out_dtype=torch.bfloat16,
+                inv=None):
     """The map kernels' arithmetic on their own operands, in float64: the
     Hankel matrix A[l, 2k + c] read from the staged words at sample l + k
     (word l + k + 4; bf16: one word per tap, int8: one word per pair of
     taps), zero past the words, times the packed B [288, 8 groups]; then
-    Re and Im to f32, the power re*re + im*im as separately rounded f32
-    operations, and a bf16 store (RNE)."""
+    Re and Im to f32 and the kernels' epilogues: the power re*re + im*im
+    as separately rounded f32 operations, times the f32 ``inv`` when given
+    (the scaled int8 map), stored as ``out_dtype`` (bf16 RNE or f32)."""
     n_w, per_word = words.shape
     step = per_word // 2                     # samples per word
     pad = torch.zeros((max(n_w, n_lags + 4 + tc.TAPS_PAD), per_word),
@@ -82,7 +86,10 @@ def _hankel_map(words, packed, n_t, n_lags):
     ab = hank @ packed.double().reshape(-1, 2 * tc.TAPS_PAD).T
     re = ab[:, 0::2][:, :n_t].T.float()      # column 2t: Re of template t
     im = ab[:, 1::2][:, :n_t].T.float()
-    return (re * re + im * im).to(torch.bfloat16)
+    p = re * re + im * im
+    if inv is not None:
+        p = p * torch.tensor(np.float32(inv))
+    return p.to(out_dtype)
 
 
 @pytest.mark.parametrize("n_t,n_cap", SHAPES)
@@ -117,6 +124,66 @@ def test_bf16_hankel_product_is_within_one_step_of_the_plain_version(
         + 1e-5 * float(ref.max())
     assert bool(((got - ref).abs() <= tol).all())
     assert float((got == ref).double().mean()) > 0.9
+
+
+@pytest.mark.parametrize("n_t,n_cap", SHAPES)
+def test_f32_hankel_product_is_within_1e6_of_the_plain_version(n_t, n_cap):
+    """pss_corr_bf16_f32out: exact products of the bf16 operands summed in
+    another order (f32 in mma order in the kernel, float64 here, f32 in
+    the plain version), stored as f32: within 1e-6 x the map's max."""
+    cap, taps = _operands("bf16", n_t, n_cap, 50 + n_t)
+    n_lags = n_cap - 136
+    words = tc.capture_words(cap[None])[0]
+    got = _hankel_map(words, tc.pack_map_taps(taps), n_t, n_lags,
+                      torch.float32)
+    ref = tc.corr_pow_f32_plain(cap, taps, n_lags)
+    assert got.dtype == ref.dtype == torch.float32
+    assert got.shape == ref.shape == (n_t, n_lags)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
+
+
+@pytest.mark.parametrize("n_t,n_cap", SHAPES)
+def test_int8_scaled_hankel_product_is_bit_equal_to_the_plain_version(
+        n_t, n_cap):
+    """pss_corr_int8_scaled: the exact int8 sums, the power and the
+    product with the probe's f32 scale each rounded once, then bf16: the
+    plain version bit for bit, saturated codes and the last lag
+    included."""
+    cap, taps = _operands("int8", n_t, n_cap, 60 + n_t)
+    inv = tc.probe_inv(_templates(n_t))
+    n_lags = n_cap - 136
+    words = tc.capture_words(cap[None])[0]
+    got = _hankel_map(words, tc.pack_map_taps(taps), n_t, n_lags, inv=inv)
+    ref = tc.corr_pow_int8_scaled_plain(cap, taps, n_lags, inv)
+    assert got.shape == ref.shape == (n_t, n_lags)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert bool(ref[:, -1].float().gt(0).all())
+
+
+def test_f32_hankel_product_meets_the_pallas_v3_kernel():
+    """The emulated f32 map against the TPU package's _corr_kernel_v3
+    (post="kernel", f32 map) in interpret mode on the same bf16 operands
+    (the v3 route's packed taps, KernelOperands.packed): f32 sums in
+    another order, within 1e-6 x the map's max."""
+    n_cap = 2 * 9600 + 400
+    rng = np.random.default_rng(11)
+    cap = ((rng.normal(size=n_cap) + 1j * rng.normal(size=n_cap)) * 0.1) \
+        .astype(np.complex64)
+    tmpl = _templates(9).astype(np.complex64)
+    n_lags = n_cap - 136
+    g = jp.bands_v2_for_templates(tmpl, precision="bf16", tc_major=True)
+    t_pad, n_tc, n_rows, n_rb = jp.plan_pallas_v2(9, n_lags)
+    ref = jp.corr_pow_core_v2(
+        jnp.real(cap), jnp.imag(cap), g, n_lags, 9, t_pad, n_tc, n_rows,
+        n_rb, interpret=True, precision="bf16", post="kernel",
+        out_dtype=jnp.float32)
+    ref = torch.from_numpy(np.array(ref, dtype=np.float32))
+    kern = tx.v3_operands(tmpl, CPU, torch.float32)
+    planes = tc.capture_planes_bf16(torch.from_numpy(cap))
+    got = _hankel_map(tc.capture_words(planes[None])[0], kern.packed, 9,
+                      n_lags, torch.float32)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
 
 
 def test_int8_hankel_product_meets_the_pallas_v2_kernel():
@@ -185,27 +252,39 @@ def test_capture_words_are_shared_with_the_fold_kernels():
 
 
 def test_kernel_operands_pack_the_map_taps_once():
-    """KernelOperands packs the taps of every bf16 map (the v2 routes and
-    v3 with a bf16 map) when it is made; the f32 maps take planes only.
-    On the CPU the wrappers check the packed taps and return the plain
-    version either way."""
+    """KernelOperands packs the taps of every map of bf16 or int8
+    operands (the v2 routes, v1 with bf16 bands, v3 with either map) when
+    it is made; f32 operands keep their planes.  On the CPU the wrappers
+    check the packed taps and return the plain version either way."""
     cap, taps = _operands("int8", 5, 700, 3)
     kern = tx.KernelOperands("int8", taps, 1.0)
     assert torch.equal(kern.packed, tc.pack_map_taps(taps))
     assert torch.equal(tc.corr_pow_int8(cap, taps, 564, kern.packed),
                        tc.corr_pow_int8(cap, taps, 564))
+    inv = tc.probe_inv(_templates(5))
+    assert torch.equal(
+        tc.corr_pow_int8_scaled(cap, taps, 564, inv, kern.packed),
+        tc.corr_pow_int8_scaled(cap, taps, 564, inv))
     cap_b, taps_b = _operands("bf16", 5, 700, 3)
     assert tx.KernelOperands("bf16", taps_b, None).packed.dtype \
         == torch.bfloat16
-    assert tx.KernelOperands("bf16", taps_b, None, torch.float32).packed \
+    kern_f = tx.KernelOperands("bf16", taps_b, None, torch.float32)
+    assert torch.equal(kern_f.packed, tc.pack_map_taps(taps_b))
+    assert torch.equal(
+        tc.corr_pow_bf16(cap_b, taps_b, 564, torch.float32, kern_f.packed),
+        tc.corr_pow_bf16(cap_b, taps_b, 564, torch.float32))
+    taps_f = tc.template_planes_f32(_templates(5), CPU)
+    assert tx.KernelOperands("f32", taps_f, None, torch.float32).packed \
         is None
     with pytest.raises(ValueError):          # packed taps of another T
         tc.corr_pow_int8(cap, taps, 564, tc.pack_map_taps(taps[:, :4]))
     with pytest.raises(ValueError):          # of another type
         tc.corr_pow_bf16(cap_b, taps_b, 564, packed=kern.packed)
-    with pytest.raises(ValueError):          # the f32 map takes planes
+    with pytest.raises(ValueError):          # the f32 map, another T
         tc.corr_pow_bf16(cap_b, taps_b, 564, torch.float32,
-                         tc.pack_map_taps(taps_b))
+                         tc.pack_map_taps(taps_b[:, :4]))
+    with pytest.raises(ValueError):          # the scaled map, another type
+        tc.corr_pow_int8_scaled(cap, taps, 564, inv, kern_f.packed)
 
 
 def test_a_library_older_than_a_shared_header_is_rebuilt(tmp_path,

@@ -7,7 +7,8 @@ kernel.
         [--variants peak,bw,v1,v2_128_16,...] [--samples N]
         [--device cuda|cpu] [--skip-rulers]
 
-Variants (the TPU tool's names; what each runs here):
+Variants (the TPU tool's names; what each runs here, "tc" on the tensor
+cores, "cc" on the CUDA cores):
 
   peak      this card's tensor-core yardsticks, library calls used only
             as rulers: torch.matmul bf16 4096^3 with bf16 output,
@@ -15,21 +16,24 @@ Variants (the TPU tool's names; what each runs here):
             with int32 output
   bw        the HBM read rate: torch.sum of a 1 GiB f32 tensor (20x the
             50 MB L2)
-  v1        v1 with bf16 bands (v1_operands): pss_corr_bf16_f32out
-  v2_M_T    v2, f32 map: pss_corr_bf16_f32out
-  v2b_M_T   v2, bf16 map (the production route): pss_corr_bf16
-  v3_M_T    v3, f32 map (v3_operands): pss_corr_bf16_f32out
-  v3b_M_T   v3, bf16 map: pss_corr_bf16
-  v2sum     the sum probe: pss_corr_sum_bf16
-  v2s_M_T   the per-chunk probe: pss_corr_bf16 once per T templates
+  v1        v1 with bf16 bands (v1_operands): pss_corr_bf16_f32out (tc)
+  v2_M_T    v2, f32 map: pss_corr_bf16_f32out (tc)
+  v2b_M_T   v2, bf16 map (the production route): pss_corr_bf16 (tc)
+  v3_M_T    v3, f32 map (v3_operands): pss_corr_bf16_f32out (tc)
+  v3b_M_T   v3, bf16 map: pss_corr_bf16 (tc)
+  v2sum     the sum probe: pss_corr_sum_bf16 (cc)
+  v2s_M_T   the per-chunk probe: pss_corr_bf16 (tc) once per T templates
   v2i_M     the int8 probe on the 8-bit ADC-grid capture:
-            pss_corr_int8_scaled
+            pss_corr_int8_scaled (tc)
 
 M (rows per block) is the TPU kernels' tiling, and so is T except in
 v2s: both are accepted and kept in the result names, and the CUDA kernels
-ignore them (a block is 256 lags x 16 templates).  v2 and v3 differ on the
-TPU only in how the map reaches the [template, lag] layout, which the CUDA
-kernels write directly, so v2_M_T and v3_M_T time one kernel.
+ignore them (a tensor-core block is 32 templates walking 256-lag tiles, a
+CUDA-core block 256 lags x 16 templates).  v2 and v3 differ on the TPU
+only in how the map reaches the [template, lag] layout, which the CUDA
+kernels write directly, so v2_M_T and v3_M_T time one kernel.  The
+tensor-core variants take the taps packed once (KernelOperands.packed, or
+pack_map_taps for v2i) and build the capture's words in each call.
 
 The capture is the port's two-cell 739 MHz capture (seed 0) at +-ppm,
 its first --samples samples.  Each time is the median over --repeats
@@ -197,9 +201,11 @@ def run(args) -> dict:
             cap_i = corr_cuda.capture_planes_int8(torch.from_numpy(
                 adc_quantize(capbuf).astype(np.complex64)).to(device))
             taps_i, _scale = corr_cuda.template_planes_int8(tmpl, device)
+            packed = corr_cuda.pack_map_taps(taps_i)
             inv = corr_cuda.probe_inv(tmpl)
-            add(name, lambda cap_i=cap_i, taps_i=taps_i, inv=inv:
-                corr_cuda.corr_pow_int8_scaled(cap_i, taps_i, n_lags, inv))
+            add(name, lambda cap_i=cap_i, taps_i=taps_i, inv=inv,
+                packed=packed: corr_cuda.corr_pow_int8_scaled(
+                    cap_i, taps_i, n_lags, inv, packed))
         else:
             # the front end's routes: v1, v2 and v3 with bf16 operands
             kern = {"v1": lambda: v1_operands(tmpl, "bf16", device),

@@ -15,8 +15,10 @@ Variants (default +-100 ppm grid, 93 templates, the port's two-cell
                  refinement slab
   exact_pow      ``ops/corr.correlate`` ("dot", complex64 on the card) and
                  |.|^2: the TPU tool's xla_pow
-  v1_f32         the v1 route's map with f32 operands: pss_corr_f32
+  v1_f32         the v1 route's map with f32 operands: pss_corr_f32 (CUDA
+                 cores)
   v1_bf16        the v1 route's map with bf16 operands: pss_corr_bf16_f32out
+                 (tensor cores, the taps packed once)
   front_lean_v1  ``xcorr_core(lean=True)`` with v1 bf16 operands
 
 Each time is the median over --repeats windows of 5 back-to-back calls
@@ -86,7 +88,8 @@ def _maps(cap_t, tmpl_flat, kern, v1):
             "v1_f32": lambda: corr_cuda.corr_pow_f32(cap_f, v1["f32"].taps,
                                                      n_lags),
             "v1_bf16": lambda: corr_cuda.corr_pow_bf16(
-                cap_b, v1["bf16"].taps, n_lags, torch.float32),
+                cap_b, v1["bf16"].taps, n_lags, torch.float32,
+                v1["bf16"].packed),
             "v2_bf16": lambda: corr_cuda.corr_pow_bf16(
                 cap_b, kern.taps, n_lags, packed=kern.packed)}
 
