@@ -8,11 +8,12 @@ Phases, each fatal on failure:
      with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
      sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
      ``hankel_mma.cuh``), all started together; the ptxas register and
-     spill lines of the six tensor-core kernel instances, keyed by trait
-     and epilogue (the four of ``map_tc_kernel``: bf16, int8, bf16_f32out,
-     int8_scaled; the two of ``pss_corr_fold_kernel``; a missing instance
-     or any spill fails), and the resident blocks per SM of the four map
-     instances (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+     spill lines of the seven tensor-core kernel instances, keyed by trait
+     and sink (the five ``map_tc_kernel`` instances: the maps bf16, int8,
+     bf16_f32out, int8_scaled and the sum probe; the two of
+     ``pss_corr_fold_kernel``; a missing instance or any spill fails), and
+     the resident blocks per SM of the five ``map_tc_kernel`` instances
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernel phase at full width for the v2 kernels (tensor-core mma.sync;
      T = 93 templates: +-100 ppm at 739 MHz; one 80 ms capture of 153600
      samples) on the main path's operands (taps packed once): each kernel
@@ -28,14 +29,15 @@ Phases, each fatal on failure:
      pss_corr_bf16_f32out (v1 with bf16 bands, v3; tensor cores) on the
      float capture within 1e-5 x max of their plain versions,
      pss_corr_int8_scaled (the int8 probe; tensor cores) on the
-     ADC-grid capture bit-equal, the sum probe pss_corr_sum_bf16 within
-     1e-5 of the largest sum, and the per-chunk probe (pss_corr_bf16
-     once per 16 templates) bit-equal to one launch; each timed beside
-     its plain version, a cuDNN conv1d yardstick (f32, TF32 off, for the
-     f32 kernel; bf16 otherwise) and its bound; the two tensor-core
-     kernels also as the bare launch on capture words and taps packed
-     once, with their useful TF/s (TOPS) and share of the data-sheet
-     peak (of this card's ruler at phase 9);
+     ADC-grid capture bit-equal, the sum probe pss_corr_sum_bf16 (tensor
+     cores) within 1e-5 of the largest sum, and the per-chunk probe
+     (pss_corr_bf16 once per 16 templates) bit-equal to one launch; each
+     timed beside its plain version, a cuDNN conv1d yardstick (f32, TF32
+     off, for the f32 kernel; bf16 otherwise) and its bound; the three
+     tensor-core kernels also as the bare launch on capture words and
+     taps packed once, with their useful TF/s (TOPS) and share of the
+     data-sheet peak (of this card's ruler at phase 9); the sum probe's
+     ptxas line, resident blocks per SM, grid and atomics per launch;
   4. single-carrier path: ``cell_search`` on a synthetic two-cell capture,
      once on the float capture (bf16 kernel) and once on the same capture
      quantized to the 8-bit ADC grid (int8 kernel); launch counts are
@@ -78,7 +80,7 @@ Phases, each fatal on failure:
      total; median of 3 more runs, each stage synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
-  9. the four tensor-core map kernels' useful rates against this card's
+  9. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
@@ -126,10 +128,11 @@ FOLD_REPLACES = {"bf16": "lte_cell_scanner_tpu/ops/corr_pallas.py:774",
 CHUNK = 64                 # carriers per band-scan chunk (scan_band default)
 UNIT = {"bf16": "TF/s", "int8": "TOPS"}
 # the tensor-core kernel templates' instances: label -> the length-prefixed
-# type names (trait, epilogue) that its mangled name holds
+# type names (trait, epilogue or sink) that its mangled name holds
 MAP_TC = {"bf16": ("4Bf16", "7PowBf16"), "int8": ("4Int8", "7PowBf16"),
           "bf16_f32out": ("4Bf16", "6PowF32"),
-          "int8_scaled": ("4Int8", "13ScaledPowBf16")}
+          "int8_scaled": ("4Int8", "13ScaledPowBf16"),
+          "sum": ("4Bf16", "12RowBlockSums")}
 FOLD_TC = {"bf16": ("4Bf16",), "int8": ("4Int8",)}
 BF16_RTOL = 2.0 ** -7      # one bf16 ulp relative to the value
 BF16_ATOL_REL = 1e-5       # x the map's max, where Re/Im cancel
@@ -380,14 +383,15 @@ def ab_operands(cap_float, cap_adc, f_set):
                      corr_cuda.pack_map_taps(taps_i))}
 
 
-def check_ab_kernels(ops, n_lags: int) -> dict:
+def check_ab_kernels(ops, n_lags: int, sum_ptxas: str) -> dict:
     """The A/B path's kernels against their plain versions at full width
     (f32 maps within 1e-5 x max, the scaled int8 map bit-equal, the sums
     within 1e-5 relative, the per-chunk map bit-equal to one launch), then
     timed beside their plain versions, a cuDNN conv1d yardstick (f32 for
-    the f32 kernel, else bf16) and their bounds; the two tensor-core
+    the f32 kernel, else bf16) and their bounds; the three tensor-core
     kernels also as the bare launch on words and packed taps made once,
-    with their useful rates."""
+    with their useful rates; the sum probe's ptxas line, occupancy, grid
+    and atomics per launch."""
     from lte_cell_scanner_tpu_torch.ops import corr_cuda as cc
     cap_f, taps_f = ops["f32"]
     cap_b, v1 = ops["bf16"]
@@ -418,7 +422,7 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
             "equal", library_call(cap_i, taps_i, n_lags),
             bound("int8", cap_i, taps_i, n_lags)),
         "pss_corr_sum_bf16": (
-            lambda: cc.corr_pow_sum_bf16(cap_b, taps_b, n_lags),
+            lambda: cc.corr_pow_sum_bf16(cap_b, taps_b, n_lags, v1.packed),
             lambda: cc.corr_pow_sum_bf16_plain(cap_b, taps_b, n_lags), None,
             "relative", library_call(cap_b, taps_b, n_lags),
             bound("bf16", cap_b, taps_b, n_lags, sums)),
@@ -434,6 +438,11 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
     words_i = cc.capture_words(cap_i[None])[0]
     out_f = torch.empty((n_t, n_lags), dtype=torch.float32, device="cuda")
     out_b = torch.empty((n_t, n_lags), dtype=torch.bfloat16, device="cuda")
+    # the sum probe walks whole row blocks; the bare launches add into one
+    # buffer, zeroed once
+    sum_lags = cc.sum_shape(n_t, n_lags)[0] * cc.SUM_BLOCK_LAGS
+    out_s = torch.zeros(cc.sum_shape(n_t, n_lags), dtype=torch.float32,
+                        device="cuda")
     bare = {
         "pss_corr_bf16_f32out": (lambda: cc._launch_tc(
             "pss_corr_bf16_f32out", words_b, v1.packed, out_f, n_t, n_lags),
@@ -441,6 +450,9 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
         "pss_corr_int8_scaled": (lambda: cc._launch_tc(
             "pss_corr_int8_scaled", words_i, packed_i, out_b, n_t, n_lags,
             float(inv)), "int8"),
+        "pss_corr_sum_bf16": (lambda: cc._launch_tc(
+            "pss_corr_sum_bf16", words_b, v1.packed, out_s, n_t, sum_lags),
+            "bf16"),
     }
     records = {}
     for name, (kernel, plain, ref_fn, check, library, (bound_ms, by)) \
@@ -490,6 +502,12 @@ def check_ab_kernels(ops, n_lags: int) -> dict:
                   f"{ms / bound_ms:.1f}x")
             records[name].update(tc_rates(name, precision, n_t, n_lags, ms,
                                           bare_ms))
+    grid = cc.map_tc_grid("pss_corr_sum_bf16", n_t, sum_lags)
+    print(f"pss_corr_sum_bf16: ptxas {sum_ptxas}; "
+          f"{cc.map_tc_blocks_per_sm()['pss_corr_sum_bf16']} resident "
+          f"blocks per SM; grid {grid[0]} x {grid[1]} over {sum_lags} lags; "
+          f"{cc.sum_atomics(n_t, sum_lags, grid[0])} atomics per launch "
+          f"into {int(np.prod(cc.sum_shape(n_t, n_lags)))} sums")
     return records
 
 
@@ -962,7 +980,7 @@ def main() -> int:
                                           map_ptxas[precision])
         del kern, cap_q
     ab_records = check_ab_kernels(ab_operands(cap_float, cap_adc, f_set),
-                                  n_lags)
+                                  n_lags, map_ptxas["sum"])
     torch.cuda.empty_cache()
 
     counts = {}
@@ -999,10 +1017,11 @@ def main() -> int:
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
-    # each tensor-core map kernel against its ruler of phase 5b
+    # each map_tc_kernel instance against its ruler of phase 5b
     for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
                      (ab_records["pss_corr_bf16_f32out"], "bf16_f32out"),
-                     (ab_records["pss_corr_int8_scaled"], "int8")):
+                     (ab_records["pss_corr_int8_scaled"], "int8"),
+                     (ab_records["pss_corr_sum_bf16"], "bf16")):
         ruler = rulers[key]
         rec["share_of_ruler"] = rec["useful_tflops"] / ruler
         unit = UNIT["int8" if key == "int8" else "bf16"]

@@ -19,22 +19,22 @@ templates and all lags, p[t, l] = |sum_m tmpl[t, m] * cap[l + m]|^2.
 - ``corr_pow_int8_scaled`` replaces the int8 probe of
   ``tools/bench_corr_v2.py`` (``_kern_i8``): the int8 map times the power
   scale inside the kernel.
-- ``corr_pow_sum_bf16`` replaces that tool's ``_sum_kernel``: the bf16 map
-  summed in the kernel, no map written.
+- ``corr_pow_sum_bf16`` replaces that tool's ``_sum_kernel``: the bf16
+  correlation's power summed in the kernel, no map written.
 - ``corr_pow_bf16_per_chunk`` is that tool's per-chunk probe: the bf16
   kernel launched once per chunk of templates.
 
-Every map of bf16 or int8 operands (``pss_corr_bf16``,
-``pss_corr_bf16_f32out``, ``pss_corr_int8``, ``pss_corr_int8_scaled``)
-runs on the tensor cores: one kernel template, the Hankel product of
-``csrc/hankel_mma.cuh`` (shared with the fused kernels of
-``ops/corr_fold_cuda.py``) of the capture's 32-bit words
+Every kernel of bf16 or int8 operands (``pss_corr_bf16``,
+``pss_corr_bf16_f32out``, ``pss_corr_int8``, ``pss_corr_int8_scaled``,
+``pss_corr_sum_bf16``) runs on the tensor cores: one kernel template, the
+Hankel product of ``csrc/hankel_mma.cuh`` (shared with the fused kernels
+of ``ops/corr_fold_cuda.py``) of the capture's 32-bit words
 (``capture_words``) and the packed taps of four templates per n8 column
-group (``pack_map_taps``), with the entry point's epilogue.  The wrapper
-builds the words for each call and packs the taps unless the caller
-passes them packed (``KernelOperands.packed`` in ``models/xcorr.py``
-packs them once).  ``pss_corr_f32`` and ``pss_corr_sum_bf16`` take
-(re, im) planes and run on the CUDA cores.
+group (``pack_map_taps``), with the entry point's epilogue: a map, or the
+sum probe's sums kept in registers.  The wrapper builds the words for
+each call and packs the taps unless the caller passes them packed
+(``KernelOperands.packed`` in ``models/xcorr.py`` packs them once).
+``pss_corr_f32`` takes (re, im) f32 planes and runs on the CUDA cores.
 
 Each wrapper launches its kernel for CUDA tensors (raising on any launch
 error) and takes the plain version only for CPU tensors.  ``LAUNCHES``
@@ -67,10 +67,13 @@ SUM_BLOCK_LAGS = 128 * SUM_ROW_LAGS
 SUM_T_CHUNK = 16
 SUM_COLS = 8
 
-# The tensor-core kernels' operands (csrc/hankel_mma.cuh: kTapsPad, kGuard)
+# The tensor-core kernels' operands and walk (csrc/hankel_mma.cuh:
+# kTapsPad, kGuard, kTileLags)
 TAPS_PAD = 144           # taps per template on the K axis (7 zero)
 _GUARD = 4               # zero words before sample 0
 MAP_GROUP = 4            # templates per n8 column group of the map kernels
+MAP_TILE_LAGS = 256      # lags per tile of the walk
+_MAP_BLOCK_GROUPS = 8    # column groups (warps) per block
 
 
 def reset_launch_counts() -> None:
@@ -294,8 +297,8 @@ def corr_pow_sum_bf16_plain(cap: torch.Tensor, taps: torch.Tensor,
 _lib = None
 # the tensor-core entry points, in the order of pss_corr_map_tc_occupancy
 MAP_TC_ENTRIES = ("pss_corr_bf16", "pss_corr_int8", "pss_corr_bf16_f32out",
-                  "pss_corr_int8_scaled")
-_PLANE_ENTRIES = ("pss_corr_f32", "pss_corr_sum_bf16")
+                  "pss_corr_int8_scaled", "pss_corr_sum_bf16")
+_PLANE_ENTRIES = ("pss_corr_f32",)
 
 
 def _kernels():
@@ -324,6 +327,34 @@ def map_tc_blocks_per_sm() -> dict:
     if err != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     return dict(zip(MAP_TC_ENTRIES, per_sm))
+
+
+def map_tc_grid(name: str, n_t: int, n_lags: int):
+    """(blocks along lags, blocks along templates) of one launch of the
+    tensor-core entry point ``name``, as its launch sizes the grid: as
+    many blocks as the card keeps resident, no more than the lag tiles,
+    in columns of 32 templates."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    slots = max(1, sms * map_tc_blocks_per_sm()[name])
+    n_tiles = -(-n_lags // MAP_TILE_LAGS)
+    gy = -(-n_t // (MAP_GROUP * _MAP_BLOCK_GROUPS))
+    return max(1, min(n_tiles, slots // gy)), gy
+
+
+def sum_atomics(n_t: int, n_lags: int, grid_x: int) -> int:
+    """The atomicAdds of one launch of ``pss_corr_sum_bf16`` over n_lags
+    (whole row blocks) with ``grid_x`` blocks along lags: block x walks
+    the run of 256-lag tiles [n_tiles x / grid_x, n_tiles (x + 1) /
+    grid_x), and each of the 8 lanes that hold a template t < n_t flushes
+    its sum once per row block that the run touches."""
+    n_tiles = n_lags // MAP_TILE_LAGS
+    per_block = SUM_BLOCK_LAGS // MAP_TILE_LAGS
+    touched = 0
+    for x in range(grid_x):
+        k0, k1 = n_tiles * x // grid_x, n_tiles * (x + 1) // grid_x
+        touched += (k1 - 1) // per_block - k0 // per_block + 1
+    return SUM_COLS * n_t * touched
 
 
 def _check(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
@@ -374,7 +405,7 @@ def _run(name: str, device: torch.device, out: torch.Tensor, *args,
 
 def _launch(name: str, cap: torch.Tensor, taps: torch.Tensor,
             out: torch.Tensor, n_lags: int) -> torch.Tensor:
-    """A CUDA-core entry point on (re, im) planes."""
+    """The CUDA-core entry point on (re, im) planes."""
     return _run(name, cap.device, out, cap.data_ptr(), taps.data_ptr(),
                 out.data_ptr(), int(cap.shape[1]), int(taps.shape[1]),
                 int(n_lags))
@@ -399,13 +430,13 @@ def _map(taps: torch.Tensor, n_lags: int, dtype: torch.dtype):
 
 def _launch_map(name: str, cap: torch.Tensor, taps: torch.Tensor,
                 n_lags: int, packed: Optional[torch.Tensor],
-                dtype: torch.dtype, *extra) -> torch.Tensor:
-    """The ``dtype`` map of a tensor-core entry point: the capture's words
-    built here, the taps packed here unless ``packed`` is given."""
+                out: torch.Tensor, *extra) -> torch.Tensor:
+    """``out`` (a map, or the sum probe's sums) of a tensor-core entry
+    point: the capture's words built here, the taps packed here unless
+    ``packed`` is given."""
     words = capture_words(cap[None])[0]
     if packed is None:
         packed = pack_map_taps(taps)
-    out = _map(taps, n_lags, dtype)
     return _launch_tc(name, words, packed, out, taps.shape[1], n_lags,
                       *extra)
 
@@ -429,7 +460,8 @@ def corr_pow_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
         plain = corr_pow_f32_plain if f32 else corr_pow_bf16_plain
         return plain(cap, taps, n_lags)
     return _launch_map("pss_corr_bf16_f32out" if f32 else "pss_corr_bf16",
-                       cap, taps, n_lags, packed, out_dtype)
+                       cap, taps, n_lags, packed,
+                       _map(taps, n_lags, out_dtype))
 
 
 def corr_pow_bf16_per_chunk(cap: torch.Tensor, taps: torch.Tensor,
@@ -488,7 +520,7 @@ def corr_pow_int8(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
     if cap.device.type == "cpu":
         return corr_pow_int8_plain(cap, taps, n_lags)
     return _launch_map("pss_corr_int8", cap, taps, n_lags, packed,
-                       torch.bfloat16)
+                       _map(taps, n_lags, torch.bfloat16))
 
 
 def corr_pow_int8_scaled(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
@@ -504,23 +536,29 @@ def corr_pow_int8_scaled(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
     if cap.device.type == "cpu":
         return corr_pow_int8_scaled_plain(cap, taps, n_lags, inv)
     return _launch_map("pss_corr_int8_scaled", cap, taps, n_lags, packed,
-                       torch.bfloat16, float(np.float32(inv)))
+                       _map(taps, n_lags, torch.bfloat16),
+                       float(np.float32(inv)))
 
 
-def corr_pow_sum_bf16(cap: torch.Tensor, taps: torch.Tensor,
-                      n_lags: int) -> torch.Tensor:
+def corr_pow_sum_bf16(cap: torch.Tensor, taps: torch.Tensor, n_lags: int,
+                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sum probe: S [n_rb, n_tc, 8, 16] f32, S[i, j, c, tc] = the sum
     over the 128 rows r of row block i of p[16 j + tc, 15360 i + 120 r +
-    c] for the bf16 map p, over whole row blocks of lags (the capture
-    zero past its end) and whole chunks of templates (zero taps past T).
-    The TPU probe writes S broadcast over the 8 rows of its (8, 128)
-    output tile and keeps c < 8 because that tile holds 8 sublanes; the
-    port keeps the same selection so that the checksum is the probe's.
-    No power map is written."""
+    c] for the f32 power p of the bf16 correlation, over whole row blocks
+    of lags (the capture zero past its end) and whole chunks of templates
+    (zero taps past T).  The TPU probe writes S broadcast over the 8 rows
+    of its (8, 128) output tile and keeps c < 8 because that tile holds 8
+    sublanes; the port keeps the same selection so that the checksum is
+    the probe's.  No power map is written: ``pss_corr_sum_bf16`` computes
+    the product at every lag on the tensor cores and sums the kept lags'
+    powers in registers, from the capture's words built here and the taps
+    packed here unless ``packed`` (``pack_map_taps``) is given."""
     _check(cap, taps, n_lags, torch.bfloat16)
+    if packed is not None:
+        _check_packed(packed, taps)
     if cap.device.type == "cpu":
         return corr_pow_sum_bf16_plain(cap, taps, n_lags)
     shape = sum_shape(taps.shape[1], n_lags)
     sums = torch.zeros(shape, dtype=torch.float32, device=cap.device)
-    return _launch("pss_corr_sum_bf16", cap, taps, sums,
-                   shape[0] * SUM_BLOCK_LAGS)
+    return _launch_map("pss_corr_sum_bf16", cap, taps,
+                       shape[0] * SUM_BLOCK_LAGS, packed, sums)

@@ -211,14 +211,39 @@ def test_int8_scaled_kernel_is_bit_equal_to_its_plain_version(cuda, n_t,
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 
 
-@pytest.mark.parametrize("n_f,n_cap", RAGGED)
-def test_sum_kernel_matches_its_plain_version(cuda, n_f, n_cap):
-    cap, taps = _operands("bf16", n_f, n_cap, 9 + n_f, cuda)
+@pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
+def test_sum_kernel_matches_its_plain_version(cuda, n_t, n_cap):
+    """pss_corr_sum_bf16 on the tensor cores, one launch and no other, at
+    the ragged shapes, T = 5, 16, 93 and full width: f32 powers of the
+    kept lags summed in another order (and flushed by atomics in an order
+    that varies between runs), within 1e-5 of the largest sum."""
+    cap, taps = _map_operands("bf16", n_t, n_cap, 9 + n_t, cuda)
+    corr_cuda.reset_launch_counts()
     got = corr_cuda.corr_pow_sum_bf16(cap, taps, n_cap - 136)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_sum_bf16": 1}
     ref = corr_cuda.corr_pow_sum_bf16_plain(cap, taps, n_cap - 136)
-    assert got.shape == ref.shape == corr_cuda.sum_shape(3 * n_f,
-                                                         n_cap - 136)
+    assert got.shape == ref.shape == corr_cuda.sum_shape(n_t, n_cap - 136)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_packed_taps_of_kernel_operands_give_the_same_sums(cuda):
+    """The sum probe on the main path's bf16 operands at full width:
+    KernelOperands' packed taps and the wrapper's own packing give S
+    within 1e-6 of the largest sum (the atomics' order varies)."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import _front_staging
+    cap_t, _tmpl, _starts, kern, _n = _front_staging(
+        two_cell_capture(), default_f_search_set(FC, 100.0), FC, FC, FS,
+        "auto", cuda, None, True)
+    assert kern.precision == "bf16"
+    planes = corr_cuda.capture_planes_bf16(cap_t)
+    n_lags = cap_t.shape[0] - 136
+    corr_cuda.reset_launch_counts()
+    got = corr_cuda.corr_pow_sum_bf16(planes, kern.taps, n_lags, kern.packed)
+    want = corr_cuda.corr_pow_sum_bf16(planes, kern.taps, n_lags)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_sum_bf16": 2}
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.max())
 
 
 @pytest.mark.parametrize("t_chunk", [16, 5])

@@ -1,6 +1,8 @@
 """The operands of the port's tensor-core map kernels (pss_corr_bf16,
 pss_corr_bf16_f32out, pss_corr_int8 and pss_corr_int8_scaled in
-lte_cell_scanner_tpu_torch/csrc/pss_corr.cu) on the CPU.
+lte_cell_scanner_tpu_torch/csrc/pss_corr.cu) and of the sum probe
+(pss_corr_sum_bf16, the same product with its sums kept in registers) on
+the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py and
 chip_smoke.py hold them against their plain versions there).  Here the
@@ -8,15 +10,19 @@ kernels' arithmetic is emulated in float64 on their own operands -- the
 Hankel matrix read from ``capture_words`` times ``pack_map_taps`` -- with
 each kernel's epilogue, and held against the plain versions, which
 tests/test_torch_corr_kernels.py and tests/test_torch_ab_kernels.py hold
-against the TPU package's Pallas kernels in interpret mode; two cases
-here also meet the Pallas int8 v2 kernel and the v3 kernel directly.
-Inputs are made with numpy from fixed seeds.
+against the TPU package's Pallas kernels in interpret mode; three cases
+here also meet the Pallas int8 v2 kernel, the v3 kernel and the sum probe
+of tools/bench_corr_v2.py directly.  Inputs are made with numpy from fixed
+seeds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from lte_cell_scanner_tpu.models import xcorr as jx
 from lte_cell_scanner_tpu.ops import corr_pallas as jp
@@ -92,6 +98,24 @@ def _hankel_map(words, packed, n_t, n_lags, out_dtype=torch.bfloat16,
     return p.to(out_dtype)
 
 
+def _hankel_sums(words, packed, n_t, n_lags):
+    """The sum probe's arithmetic on its own operands: the f32 power of
+    _hankel_map at every lag of whole row blocks (the capture zero past
+    its words), then, by the kernel's own rule, lag l kept when l % 120 <
+    8 and added to entry c = l % 8 of its row block, summed in float64."""
+    n_rb = -(-n_lags // tc.SUM_BLOCK_LAGS)
+    p = _hankel_map(words, packed, n_t, n_rb * tc.SUM_BLOCK_LAGS,
+                    torch.float32)
+    lag = torch.arange(p.shape[1])
+    kept = lag[lag % tc.SUM_ROW_LAGS < tc.SUM_COLS]
+    t = torch.arange(n_t)[:, None].expand(-1, kept.numel())
+    rb, c = (kept // tc.SUM_BLOCK_LAGS).expand_as(t), (kept % 8).expand_as(t)
+    sums = torch.zeros(tc.sum_shape(n_t, n_lags), dtype=torch.float64)
+    sums.index_put_((rb, t // tc.SUM_T_CHUNK, c, t % tc.SUM_T_CHUNK),
+                    p[:, kept].double(), accumulate=True)
+    return sums
+
+
 @pytest.mark.parametrize("n_t,n_cap", SHAPES)
 def test_int8_hankel_product_is_bit_equal_to_the_plain_version(n_t, n_cap):
     """The int8 sums are exact in the tensor cores, so the packed
@@ -158,6 +182,155 @@ def test_int8_scaled_hankel_product_is_bit_equal_to_the_plain_version(
     assert got.shape == ref.shape == (n_t, n_lags)
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
     assert bool(ref[:, -1].float().gt(0).all())
+
+
+# the map shapes (one row block) and two row blocks with a ragged third,
+# T = 21 (two chunks of 16, the second padded; not a multiple of a block's
+# 32 templates)
+SUM_SHAPES = SHAPES + [(21, 2 * 15360 + 777)]
+
+
+@pytest.mark.parametrize("n_t,n_cap", SUM_SHAPES)
+def test_sum_hankel_product_is_within_1e5_of_the_plain_version(n_t, n_cap):
+    """pss_corr_sum_bf16: the exact products of the bf16 operands, the f32
+    power of every kept lag, summed in another order (f32 in registers
+    and atomics in the kernel, float64 here, f32 in the plain version):
+    within 1e-5 of the largest sum; the lags past the capture add
+    nothing, the chunk's padded templates are zero."""
+    cap, taps = _operands("bf16", n_t, n_cap, 70 + n_t)
+    n_lags = n_cap - 136
+    words = tc.capture_words(cap[None])[0]
+    got = _hankel_sums(words, tc.pack_map_taps(taps), n_t, n_lags)
+    ref = tc.corr_pow_sum_bf16_plain(cap, taps, n_lags).double()
+    assert got.shape == ref.shape == tc.sum_shape(n_t, n_lags)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.max())
+    by_t = got.permute(0, 2, 1, 3).reshape(got.shape[0], tc.SUM_COLS, -1)
+    assert not by_t[..., n_t:].any()
+    assert bool(by_t[..., :n_t].gt(0).all())
+
+
+def _x3(cap, n_rows):
+    """The sum probe's bf16 im2col rows of the zero-padded capture
+    (tools/bench_corr_v2.py:214-224)."""
+    kv, w = jp.KV_V2, jp.W_V2
+    planes = []
+    for plane in (jnp.real(cap), jnp.imag(cap)):
+        p = plane.astype(jnp.float32)
+        p = jnp.concatenate([p, jnp.zeros(w * (n_rows + 2) - p.shape[0],
+                                          p.dtype)])
+        a = p.reshape(n_rows + 2, w)
+        planes.append(jnp.concatenate([a[:-2], a[1:-1], a[2:, : kv - 2 * w]],
+                                      axis=1))
+    return jnp.concatenate(planes, axis=1).astype(jnp.bfloat16)
+
+
+def _pallas_sum_probe(cap, tmpl):
+    """tools/bench_corr_v2.py:199-240 at rows_per_block 128, t_chunk 16,
+    without the roll and the final jnp.sum, in interpret mode: the
+    probe's sums [n_rb, n_tc, 8, 16] (row 0 of each (8, 128) output tile,
+    whose 8 rows are equal)."""
+    kv, w = jp.KV_V2, jp.W_V2
+    n_t, n_lags = tmpl.shape[0], cap.shape[0] - 136
+    g2 = jp.bands_v2_for_templates(tmpl, precision="bf16", t_chunk=16)
+    _t_pad, n_tc, n_rows, n_rb = jp.plan_pallas_v2(n_t, n_lags,
+                                                   rows_per_block=128,
+                                                   t_chunk=16)
+
+    # kernel body verbatim from tools/bench_corr_v2.py:205-212
+    def _sum_kernel(x_ref, g_ref, out_ref):
+        acc = jnp.dot(x_ref[:], g_ref[:],
+                      preferred_element_type=jnp.float32)
+        h = acc.shape[1] // 2
+        xr = acc[:, :h]
+        xi = acc[:, h:]
+        s = jnp.sum(xr * xr + xi * xi, axis=0, keepdims=True)
+        out_ref[:] = jnp.broadcast_to(s[:, :128], (8, 128))
+
+    # grid and BlockSpecs from tools/bench_corr_v2.py:225-239
+    out = pl.pallas_call(
+        _sum_kernel,
+        grid=(n_tc, n_rb),
+        in_specs=[
+            pl.BlockSpec((128, 2 * kv), lambda j, i: (i, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((2 * kv, 2 * w * 16), lambda j, i: (0, j),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((8, 128), lambda j, i: (i, j),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8 * n_rb, 128 * n_tc), jnp.float32),
+        interpret=True,
+    )(_x3(jnp.asarray(cap), n_rows), g2)
+    tiles = np.asarray(out).reshape(n_rb, 8, n_tc, 128)
+    return tiles[:, 0].reshape(n_rb, n_tc, 8, 16)
+
+
+def test_sum_hankel_product_meets_the_pallas_sum_probe():
+    """The emulated sum probe against the TPU package's probe kernel in
+    interpret mode on the same capture and templates: T = 21 (two chunks),
+    two row blocks, the second past the capture's end; f32 sums of the
+    same bf16 products in other orders, within 1e-5 of the largest sum."""
+    n_cap = 2 * 9600 + 777
+    rng = np.random.default_rng(17)
+    cap = ((rng.normal(size=n_cap) + 1j * rng.normal(size=n_cap)) * 0.1) \
+        .astype(np.complex64)
+    tmpl = _templates(21).astype(np.complex64)
+    ref = _pallas_sum_probe(cap, tmpl).astype(np.float64)
+    planes = tc.capture_planes_bf16(torch.from_numpy(cap))
+    taps = tc.template_planes_bf16(tmpl, CPU)
+    got = _hankel_sums(tc.capture_words(planes[None])[0],
+                       tc.pack_map_taps(taps), 21, n_cap - 136).numpy()
+    assert got.shape == ref.shape == (2, 2, 8, 16)
+    assert np.max(np.abs(got - ref)) <= 1e-5 * ref.max()
+
+
+def test_sum_probe_geometry():
+    """What the sum kernel's register epilogue rests on: a 256-lag tile
+    lies in one row block, and lane (g, q) of the m16n8 accumulator holds
+    only lags = g (mod 8) of a tile starting at a multiple of 8, so every
+    lag it keeps (l % 120 < 8) has c = g.  On the CPU the wrapper gives
+    the same S with and without the taps packed, and refuses a malformed
+    packing."""
+    assert tc.SUM_BLOCK_LAGS % tc.MAP_TILE_LAGS == 0
+    assert tc.SUM_ROW_LAGS % 8 == 0 and tc.MAP_TILE_LAGS % 8 == 0
+    assert tc.SUM_COLS == 8
+    lag = torch.arange(2 * tc.SUM_BLOCK_LAGS)
+    kept = lag[lag % tc.SUM_ROW_LAGS < tc.SUM_COLS]
+    assert torch.equal(kept % tc.SUM_ROW_LAGS, kept % 8)
+    tile = lag // tc.MAP_TILE_LAGS
+    assert torch.equal(tile * tc.MAP_TILE_LAGS // tc.SUM_BLOCK_LAGS,
+                       lag // tc.SUM_BLOCK_LAGS)
+
+    cap, taps = _operands("bf16", 21, 2000, 5)
+    want = tc.corr_pow_sum_bf16(cap, taps, 1864)
+    assert torch.equal(tc.corr_pow_sum_bf16(cap, taps, 1864,
+                                            tc.pack_map_taps(taps)), want)
+    with pytest.raises(ValueError):          # packed taps of another T
+        tc.corr_pow_sum_bf16(cap, taps, 1864, tc.pack_map_taps(taps[:, :20]))
+    with pytest.raises(ValueError):          # of another type
+        tc.corr_pow_sum_bf16(cap, taps, 1864,
+                             tc.pack_map_taps(taps).float())
+    with pytest.raises(ValueError):          # not contiguous
+        tc.corr_pow_sum_bf16(cap, taps, 1864,
+                             tc.pack_map_taps(taps).transpose(1, 2))
+
+
+@pytest.mark.parametrize("grid_x", [1, 7, 44, 600])
+def test_sum_atomics_follow_the_walk(grid_x):
+    """sum_atomics counts one flush per lane of each template and per row
+    block that a block's run of tiles touches: one run per row block at
+    one block, one per tile at one tile per block, and in between the
+    runs that cross a row-block boundary twice."""
+    n_lags = 10 * tc.SUM_BLOCK_LAGS
+    n_tiles = n_lags // tc.MAP_TILE_LAGS
+    per_block = tc.SUM_BLOCK_LAGS // tc.MAP_TILE_LAGS
+    touched = sum(len({k // per_block for k in range(n_tiles * x // grid_x,
+                                                      n_tiles * (x + 1)
+                                                      // grid_x)})
+                  for x in range(grid_x))
+    assert tc.sum_atomics(93, n_lags, grid_x) == 8 * 93 * touched
+    assert tc.sum_atomics(93, n_lags, 1) == 8 * 93 * 10
+    assert tc.sum_atomics(93, n_lags, n_tiles) == 8 * 93 * n_tiles
 
 
 def test_f32_hankel_product_meets_the_pallas_v3_kernel():

@@ -8,7 +8,7 @@ kernel.
         [--device cuda|cpu] [--skip-rulers]
 
 Variants (the TPU tool's names; what each runs here, "tc" on the tensor
-cores, "cc" on the CUDA cores):
+cores):
 
   peak      this card's tensor-core yardsticks, library calls used only
             as rulers: torch.matmul bf16 4096^3 with bf16 output,
@@ -21,19 +21,20 @@ cores, "cc" on the CUDA cores):
   v2b_M_T   v2, bf16 map (the production route): pss_corr_bf16 (tc)
   v3_M_T    v3, f32 map (v3_operands): pss_corr_bf16_f32out (tc)
   v3b_M_T   v3, bf16 map: pss_corr_bf16 (tc)
-  v2sum     the sum probe: pss_corr_sum_bf16 (cc)
+  v2sum     the sum probe: pss_corr_sum_bf16 (tc)
   v2s_M_T   the per-chunk probe: pss_corr_bf16 (tc) once per T templates
   v2i_M     the int8 probe on the 8-bit ADC-grid capture:
             pss_corr_int8_scaled (tc)
 
 M (rows per block) is the TPU kernels' tiling, and so is T except in
 v2s: both are accepted and kept in the result names, and the CUDA kernels
-ignore them (a tensor-core block is 32 templates walking 256-lag tiles, a
-CUDA-core block 256 lags x 16 templates).  v2 and v3 differ on the TPU
-only in how the map reaches the [template, lag] layout, which the CUDA
-kernels write directly, so v2_M_T and v3_M_T time one kernel.  The
+ignore them (a tensor-core block is 32 templates walking 256-lag tiles).
+v2 and v3 differ on the TPU only in how the map reaches the [template,
+lag] layout, which the CUDA kernels write directly, so v2_M_T and v3_M_T
+time one kernel.  The
 tensor-core variants take the taps packed once (KernelOperands.packed, or
-pack_map_taps for v2i) and build the capture's words in each call.
+pack_map_taps for v2sum and v2i) and build the capture's words in each
+call.
 
 The capture is the port's two-cell 739 MHz capture (seed 0) at +-ppm,
 its first --samples samples.  Each time is the median over --repeats
@@ -191,8 +192,9 @@ def run(args) -> dict:
         kind, *tiling = v.split("_")
         name = result_name(v)
         if v == "v2sum":
-            add(name, lambda: corr_cuda.corr_pow_sum_bf16(cap_b, taps_b,
-                                                          n_lags))
+            packed = corr_cuda.pack_map_taps(taps_b)
+            add(name, lambda packed=packed: corr_cuda.corr_pow_sum_bf16(
+                cap_b, taps_b, n_lags, packed))
         elif kind == "v2s":
             add(name, lambda t_chunk=int(tiling[1]):
                 corr_cuda.corr_pow_bf16_per_chunk(cap_b, taps_b, n_lags,
