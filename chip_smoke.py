@@ -46,6 +46,27 @@ Phases, each fatal on failure:
      of the same capture; then s_per_carrier (median of 5 plain runs
      after a warm-up) and seconds by stage (median of 5 more runs, each
      stage synchronised);
+  4b. file captures and search variants, launch counts zeroed just
+     before and read just after each run (every count goes into the
+     kernel records as ``file_launches``, apart from ``launches``): the
+     two-cell capture written to a temporary directory as a raw rtl_sdr
+     u8 file (the ADC-grid codes + 127) and as an .it file (the float
+     capture); ``cli.main(["search", "-s", "739e6", "-p", "100",
+     "--load-files", ...])`` on each: exactly one pss_corr_int8 launch
+     (u8) or one pss_corr_bf16 launch (.it) and no other, cells 277 and
+     271 with their MIB, ID, CP, SFN and ports equal to phase 4's run of
+     the same capture; the u8 file with --noise-power (off the grid: one
+     pss_corr_bf16); ``-r -d DIR --sim`` then ``-l -d DIR`` (the same
+     table); --interp 2stage, --interp freq_time and --compat golden
+     through the CLI and ``SearchConfig(batch_peaks=False)`` through
+     ``cell_search`` on the float capture (the default run's ID, CP and
+     SFN); a 160 ms capture through the coupled crystal channel at 60 kHz
+     (``io/capture.py::SimSource``): cell 277 must decode, and the
+     pss_corr_bf16 map it gives ([93, 307064]) is held against its plain
+     version (within one bf16 step + 1e-5 x max; not counted), then its
+     front-end seconds and the v2 map's lag count; ``bench_torch.py``'s ``main`` at small repeats
+     (its JSON line, ``full_chain.valid`` true); one ``cell_search`` of a
+     capture through ``sim/channel.py::multipath_channel``;
   5. one cell_search under torch.profiler: the device's busy share and
      the device operations that take the most time;
   5b. the correlation A/B path, launch counts zeroed just before and read
@@ -76,15 +97,17 @@ Phases, each fatal on failure:
      each cell equal (ID, CP, SFN, ports) to the single-carrier
      ``cell_search`` of the same capture on the card; then seconds per
      band and carriers_per_s through MIB (median of 3 plain runs after a
-     warm-up), and seconds by stage (staging, front_end, sss_foe, decode,
-     total; median of 3 more runs, each stage synchronised);
+     warm-up), and seconds by stage (staging, xcorr_pss, peak_search,
+     sss_foe_fused, decode_fused, total; median of 3 more runs, each stage
+     synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
   9. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
-     launches are those of phase 5b), then the result line.
+     launches are those of phase 5b; each with its ``file_launches`` of
+     phase 4b), then the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -276,20 +299,16 @@ def library_call(cap_q, taps, n_lags: int, dtype=torch.bfloat16):
     return run
 
 
-def check_kernel(precision: str, kern, cap_q, n_lags: int,
-                 ptxas: str) -> dict:
-    """The tensor-core map kernel of ``precision`` on the main path's
-    operands (the taps packed once by KernelOperands) against its plain
-    version, then timed: the wrapper (capture words built per call), the
-    bare launch on words built once, the plain version and the library
-    yardstick; its bound and useful rate."""
+def map_parity(precision: str, kern, cap_q, n_lags: int) -> float:
+    """The v2 map kernel of ``precision`` on the main path's operands (the
+    taps packed once by KernelOperands) against its plain version: int8
+    bit for bit, bf16 within one bf16 step + 1e-5 x the map's max.
+    Returns the largest |error|."""
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     wrapper = corr_cuda.corr_pow_int8 if precision == "int8" \
         else corr_cuda.corr_pow_bf16
     plain = corr_cuda.corr_pow_int8_plain if precision == "int8" \
         else corr_cuda.corr_pow_bf16_plain
-    name = f"pss_corr_{precision}"
-    n_t = kern.taps.shape[1]
     got = wrapper(cap_q, kern.taps, n_lags, packed=kern.packed)
     torch.cuda.synchronize()
     ref = plain(cap_q, kern.taps, n_lags)
@@ -318,8 +337,24 @@ def check_kernel(precision: str, kern, cap_q, n_lags: int,
               f"beyond 1 bf16 ulp + 1e-5 x max")
         if n_bad:
             fail("bf16 kernel disagrees with its plain version")
+    return max_abs_err
 
-    del got, ref, g, r, err
+
+def check_kernel(precision: str, kern, cap_q, n_lags: int,
+                 ptxas: str) -> dict:
+    """The tensor-core map kernel of ``precision`` on the main path's
+    operands against its plain version (map_parity), then timed: the
+    wrapper (capture words built per call), the bare launch on words
+    built once, the plain version and the library yardstick; its bound
+    and useful rate."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    wrapper = corr_cuda.corr_pow_int8 if precision == "int8" \
+        else corr_cuda.corr_pow_bf16
+    plain = corr_cuda.corr_pow_int8_plain if precision == "int8" \
+        else corr_cuda.corr_pow_bf16_plain
+    name = f"pss_corr_{precision}"
+    n_t = kern.taps.shape[1]
+    max_abs_err = map_parity(precision, kern, cap_q, n_lags)
     ms = time_cuda(lambda: wrapper(cap_q, kern.taps, n_lags,
                                    packed=kern.packed))
     words = corr_cuda.capture_words(cap_q[None])[0]
@@ -667,7 +702,209 @@ def run_main_path(label: str, capbuf, f_set, precision: str, counts: dict):
           f"stage synchronised): " + ", ".join(
               f"{k} {v:.5f}" for k, v in stages.items()))
     print(f"{label}: pss_scan_samples_per_sec "
-          f"{capbuf.shape[0] / stages['front_end']:.1f}")
+          f"{capbuf.shape[0] / stages['xcorr_pss']:.1f}")
+    return cells
+
+
+def run_cli(label: str, argv, expect: dict, file_counts: dict):
+    """cli.main(argv) on the card, its standard output captured and
+    echoed; launch counts zeroed before and read after, exactly
+    ``expect`` (kernel: launches).  Returns ({cell ID: (CP, ports, SFN,
+    n_rb)} from its "Detected a cell!" lines, the printed table)."""
+    import contextlib
+    import io
+    import re
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+
+    corr_cuda.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    launched = read_launches(label, set(expect))
+    if rc != 0:
+        print(out)
+        fail(f"{label}: cli exited {rc}")
+    if launched != expect:
+        fail(f"{label}: launched {launched}, expected {expect}")
+    for k, v in launched.items():
+        file_counts[k] = file_counts.get(k, 0) + v
+    lines = out.splitlines()
+    table = lines[next(i for i, ln in enumerate(lines)
+                       if ln.startswith("Detected the following")):]
+    print(f"{label}: {secs:.3f} s; " + " | ".join(table[3:]))
+    cells = {int(m[1]): (m[2], int(m[3]), int(m[4]), int(m[5]))
+             for m in re.finditer(
+                 r"Detected a cell! Cell\(cellID=(\d+) .*?cp=(\w+) .*?"
+                 r"nRB=(\d+) ports=(\d+) .*?sfn=(\d+)\)", out)}
+    cells = {k: (cp, ports, sfn, n_rb)
+             for k, (cp, n_rb, ports, sfn) in cells.items()}
+    return cells, table
+
+
+def cell_key(cells) -> dict:
+    return {c.n_id_cell(): (c.cp_type.value, c.n_ports, c.sfn, c.n_rb_dl)
+            for c in cells}
+
+
+def expect_same(label: str, got: dict, want: dict, fields: int = 4) -> None:
+    """The decoded cells (ID -> CP, ports, SFN, n_rb) of a run against
+    another run's, on the first ``fields`` fields."""
+    from lte_cell_scanner_tpu_torch.sim.scenarios import TWO_CELL_TRUTH
+    if sorted(got) != sorted(TWO_CELL_TRUTH):
+        fail(f"{label}: decoded cells {sorted(got)}")
+    for k in got:
+        if got[k][:fields] != want[k][:fields] or got[k][3] != 6:
+            fail(f"{label}: cell {k} {got[k]}, expected {want[k]}")
+
+
+def run_search(label: str, capbuf, f_set, expect: dict, file_counts: dict,
+               config=None, timings=None):
+    """cell_search on the card with launch counts zeroed before and read
+    after (exactly ``expect``)."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    corr_cuda.reset_launch_counts()
+    cells = cell_search(capbuf, f_set, FC, FC, FS_WORK, config,
+                        device="cuda", timings=timings)
+    launched = read_launches(label, set(expect))
+    if launched != expect:
+        fail(f"{label}: launched {launched}, expected {expect}")
+    for k, v in launched.items():
+        file_counts[k] = file_counts.get(k, 0) + v
+    for c in cells:
+        print(f"  {c}")
+    return cells
+
+
+def phase_files(cap_float, cap_adc, f_set, float_cells, adc_cells,
+                file_counts: dict) -> None:
+    """Phase 4b: file captures and search variants (see the docstring)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from lte_cell_scanner_tpu_torch.io.capture import SimSource
+    from lte_cell_scanner_tpu_torch.models.search import SearchConfig
+    from lte_cell_scanner_tpu_torch.sim import (awgn, create_dl_sig,
+                                                multipath_channel)
+    from lte_cell_scanner_tpu_torch.cell import CpType
+    from lte_cell_scanner_tpu_torch.utils.itfile import write_itfile
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    import bench_torch
+
+    t_phase = time.perf_counter()
+    want_adc = cell_key(adc_cells)
+    want_float = cell_key(float_cells)
+    bf16 = {"pss_corr_bf16": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        u8 = os.path.join(tmp, "cap.u8")
+        it = os.path.join(tmp, "cap.it")
+        complex_to_iq_u8(cap_adc).tofile(u8)
+        write_itfile(it, {"capbuf": cap_float,
+                          "fc": np.array([int(FC)], dtype=np.int32)})
+        print(f"files: {u8} ({os.path.getsize(u8)} bytes), {it} "
+              f"({os.path.getsize(it)} bytes)")
+        base = ["search", "-s", "739e6", "-p", "100"]
+        got, _ = run_cli("u8 file", base + ["--load-files", u8],
+                         {"pss_corr_int8": 1}, file_counts)
+        expect_same("u8 file", got, want_adc)
+        from lte_cell_scanner_tpu_torch.constants import FS_WORK
+        from lte_cell_scanner_tpu_torch.io.capture import FileSource
+        from lte_cell_scanner_tpu_torch.models.search import cell_search
+        totals, _st = timed_runs(lambda timings: cell_search(
+            FileSource([u8]).capture(FC)[0], f_set, FC, FC, FS_WORK,
+            device="cuda", timings=timings), 5)
+        print(f"u8 file: s_per_carrier {statistics.median(totals):.5f} "
+              f"(file read and cell_search, median of 5 after a warm-up; "
+              + ", ".join(f"{t:.5f}" for t in totals) + ")")
+        got, _ = run_cli(".it file", base + ["--load-files", it], bf16,
+                         file_counts)
+        expect_same(".it file", got, want_float)
+        got, _ = run_cli("u8 file --noise-power 1e-4",
+                         base + ["--load-files", u8, "--noise-power",
+                                 "1e-4"], bf16, file_counts)
+        expect_same("u8 file --noise-power", got, want_adc, 1)
+        rec_dir = os.path.join(tmp, "rec")
+        os.mkdir(rec_dir)
+        _c, rec = run_cli("--sim -r", base + ["--sim", "-r", "-d", rec_dir],
+                          bf16, file_counts)
+        if os.listdir(rec_dir) != ["capbuf_0000.it"]:
+            fail(f"record: {os.listdir(rec_dir)}")
+        _c, rep = run_cli("-l replay", base + ["-l", "-d", rec_dir], bf16,
+                          file_counts)
+        if rep != rec or not rec[3].startswith("277 2 "):
+            fail(f"replay printed {rep}, the recording {rec}")
+        for flags in (["--interp", "2stage"], ["--interp", "freq_time"],
+                      ["--compat", "golden"]):
+            label = "variant " + " ".join(flags)
+            got, _ = run_cli(label, base + ["--load-files", it] + flags,
+                             bf16, file_counts)
+            expect_same(label, got, want_float, 3)
+    cells = run_search("batch_peaks=False", cap_float, f_set, bf16,
+                       file_counts, SearchConfig(batch_peaks=False))
+    expect_same("batch_peaks=False", cell_key(cells), want_float, 3)
+
+    # a 160 ms capture through the coupled crystal channel at 60 kHz
+    long_cap, _ = SimSource(coupled_fc=FC, freq_offset=60e3,
+                            capture_ms=160).capture(FC)
+    cells = run_search("160 ms coupled capture", long_cap, f_set, bf16,
+                       file_counts)
+    best = {c.n_id_cell(): c for c in cells}.get(277)
+    if best is None or best.n_rb_dl != 6 or abs(best.freq_fine - 60e3) > 50:
+        fail(f"160 ms capture: cell 277 not decoded at 60 kHz: {cells}")
+    # the v2 map at this width against its plain version (not counted)
+    kern, cap_q = kernel_operands(long_cap, f_set)
+    if kern.precision != "bf16":
+        fail(f"160 ms capture: staging picked {kern.precision}")
+    n_lags = len(long_cap) - 136
+    err = map_parity("bf16", kern, cap_q, n_lags)
+    print(f"160 ms capture: pss_corr_bf16 [{kern.taps.shape[1]}, {n_lags}] "
+          f"vs plain: max |err| {err:.3e}")
+    del kern, cap_q
+    torch.cuda.empty_cache()
+    timings = {}
+    run_search("160 ms coupled capture (timed)", long_cap, f_set, bf16,
+               file_counts, timings=timings)
+    print(f"160 ms capture: front end (xcorr_pss) {timings['xcorr_pss']:.5f}"
+          f" s over the v2 map [{3 * len(f_set)}, {n_lags}] bf16 "
+          f"({3 * len(f_set) * n_lags * 2 / 1e6:.1f} MB), n_comb_xc "
+          f"{(n_lags - 100) // 9600}; stages " + ", ".join(
+              f"{k} {v:.5f}" for k, v in timings.items()))
+
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    corr_cuda.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_torch.main(["--rounds", "3", "--iters", "3", "--runs",
+                               "3"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"bench_torch: {line}")
+    launched = read_launches("bench_torch", {"pss_corr_fold_bf16",
+                                             "pss_corr_bf16"})
+    for k, v in launched.items():
+        file_counts[k] = file_counts.get(k, 0) + v
+    res = json.loads(line)
+    if rc != 0 or not res["full_chain"]["valid"]:
+        fail("bench_torch: full_chain.valid is not true")
+
+    rng = np.random.default_rng(17)
+    sig = create_dl_sig(CpType.NORMAL, 80, 0, 92, 1, 0.5, rng=rng,
+                        n_ports=2, sfn=40)
+    sig = awgn(multipath_channel(sig, n_taps=4, delay_spread=1.5, rng=rng),
+               5.0, rng=rng)
+    cells = run_search("multipath capture", sig, f_set, bf16, file_counts)
+    best = max(cells, key=lambda c: c.pss_pow) if cells else None
+    if best is None or (best.n_id_cell(), best.n_rb_dl, best.n_ports) != \
+            (277, 6, 2) or best.sfn not in (40, 41):
+        fail(f"multipath capture: {cells}")
+    print(f"phase 4b: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{file_counts}")
 
 
 def timed_runs(run, n: int):
@@ -984,8 +1221,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     counts = {}
-    run_main_path("float capture", cap_float, f_set, "bf16", counts)
-    run_main_path("ADC-grid capture", cap_adc, f_set, "int8", counts)
+    float_cells = run_main_path("float capture", cap_float, f_set, "bf16",
+                                counts)
+    adc_cells = run_main_path("ADC-grid capture", cap_adc, f_set, "int8",
+                              counts)
+    file_counts = {}
+    phase_files(cap_float, cap_adc, f_set, float_cells, adc_cells,
+                file_counts)
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.models.search import cell_search
     phase_profile("cell_search (float capture)", lambda: cell_search(
@@ -1039,6 +1281,8 @@ def main() -> int:
     for name, rec in ab_records.items():
         rec["launches"] = ab_counts[name]
         kernels.append(rec)
+    for rec in kernels:
+        rec["file_launches"] = file_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -48,17 +48,11 @@ def cell_from_fields(d: dict) -> Cell:
 
 
 def config_from_fields(d: dict) -> SearchConfig:
-    """A SearchConfig from plain fields.  Fields of the TPU package's
-    configuration that select behaviour the port does not have must hold
-    the value the port implements (compat "production", interp "hex",
-    batch_peaks True, no skip_ids); corr_backend names are translated."""
-    fixed = {"compat": "production", "interp": "hex", "batch_peaks": True}
+    """A SearchConfig from plain fields.  skip_ids, which the port does
+    not have yet, must be empty; corr_backend names are translated."""
     kw = {}
     for k, v in d.items():
-        if k in fixed:
-            if v != fixed[k]:
-                raise NotImplementedError(f"{k}={v!r} is not ported")
-        elif k == "skip_ids":
+        if k == "skip_ids":
             if v:
                 raise NotImplementedError("skip_ids is not ported")
         elif k == "corr_backend":

@@ -18,7 +18,7 @@ Array layout: lag axis last ([3, n_f, lag]).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -323,30 +323,37 @@ def xcorr_pss_peaks(capbuf, f_search_set, ds_comb_arm: int,
                     fc_requested: float, fc_programmed: float,
                     fs_programmed: float, thresh1_n_nines: int,
                     corr_backend: str = "auto", device=None,
-                    cap_t: Optional[torch.Tensor] = None
+                    cap_t: Optional[torch.Tensor] = None,
+                    timings: Optional[Dict[str, float]] = None
                     ) -> Tuple[np.ndarray, int, int]:
     """Single-carrier front end with the peak search run on the device:
     returns (recs [cap, 4], n, n_comb_xc) -- feed to
     models.peaks.cells_from_peak_records.  Only the peak records leave
-    the device."""
+    the device.  Timed as two stages, xcorr_pss (the front end) and
+    peak_search (the device peak search and the records' copy back), the
+    names the host route of models/search.py::cell_search uses."""
+    from ..utils.debug import stage
     from .peaks import peak_search_device
     from .search import compute_z_th1
 
     device = resolve_device(device)
-    cap_t, templates, start_idx, kern, n_comb_xc = _front_staging(
-        capbuf, f_search_set, fc_requested, fc_programmed, fs_programmed,
-        corr_backend, device, cap_t, want_kernel=True)
-    xc2, _xc, pw_scale = _corr_stage(cap_t, templates, False, kern)
-    xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
-    (_s, _i, pow_c, frq_c, _sp, sp_inc, slab) = _post_fold_stage(
-        xc_single[None], cap_t[None], ds_comb_arm, True)
-    # the chi-squared threshold scale: compute_z_th1 with a unit
-    # sp_incoherent (one definition of the detection constant)
-    z_scale = float(compute_z_th1(np.float64(1.0), n_comb_xc, ds_comb_arm,
-                                  thresh1_n_nines))
-    recs, n = peak_search_device(pow_c, frq_c, slab, sp_inc * z_scale,
-                                 ds_comb_arm)
-    return recs[0].cpu().numpy(), int(n[0].item()), n_comb_xc
+    with stage("xcorr_pss", device, timings):
+        cap_t, templates, start_idx, kern, n_comb_xc = _front_staging(
+            capbuf, f_search_set, fc_requested, fc_programmed,
+            fs_programmed, corr_backend, device, cap_t, want_kernel=True)
+        xc2, _xc, pw_scale = _corr_stage(cap_t, templates, False, kern)
+        xc_single = _fold_stage(xc2, start_idx, cap_t.real.dtype, pw_scale)
+        (_s, _i, pow_c, frq_c, _sp, sp_inc, slab) = _post_fold_stage(
+            xc_single[None], cap_t[None], ds_comb_arm, True)
+    with stage("peak_search", device, timings):
+        # the chi-squared threshold scale: compute_z_th1 with a unit
+        # sp_incoherent (one definition of the detection constant)
+        z_scale = float(compute_z_th1(np.float64(1.0), n_comb_xc,
+                                      ds_comb_arm, thresh1_n_nines))
+        recs, n = peak_search_device(pow_c, frq_c, slab, sp_inc * z_scale,
+                                     ds_comb_arm)
+        recs_h, n_h = recs[0].cpu().numpy(), int(n[0].item())
+    return recs_h, n_h, n_comb_xc
 
 
 def xcorr_pss(capbuf, f_search_set, ds_comb_arm: int, fc_requested: float,

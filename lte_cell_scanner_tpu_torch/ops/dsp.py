@@ -1,6 +1,6 @@
 """DSP substrate of the search path: the Matlab range used for index
-planning, the frequency-shift phase ramp, the unitary DFT and the
-chi-squared inverse CDF.
+planning, the frequency-shift phase ramp, the unitary DFT, linear
+interpolation and the chi-squared inverse CDF.
 
 Behavioral contracts mirror the reference's IT++/FFTW veneer
 (reference include/dsp.h, src/dsp.cpp, include/itpp_ext.h).  Tensor
@@ -49,6 +49,34 @@ def fshift_ramp(n: int, f, fs, dtype: torch.dtype,
     k = torch.tensor(2.0 * np.pi, dtype=rdt, device=device) * f / fs
     ang = k[..., None] * t
     return torch.complex(torch.cos(ang), torch.sin(ang)).to(dtype)
+
+
+def interp1(X: torch.Tensor, Y: torch.Tensor, x: torch.Tensor
+            ) -> torch.Tensor:
+    """Linear interpolation with linear extrapolation at the edges,
+    over any leading batch axes (broadcast between X [..., n], Y [..., n]
+    and x [..., m]) -> [..., m].
+
+    Matches reference interp1 (dsp.h:152-185): X strictly increasing,
+    at least two knots; values outside [X[0], X[-1]] extrapolate from the
+    edge segment.
+    """
+    n = X.shape[-1]
+    # numpy's broadcast rule: torch.broadcast_shapes imports torch.fx's
+    # symbolic-shape machinery on first use (seconds on a cold process)
+    lead = np.broadcast_shapes(X.shape[:-1], Y.shape[:-1], x.shape[:-1])
+    Y = Y.expand(*lead, n)
+    X = X.expand(*lead, n).contiguous()
+    x = x.expand(*lead, x.shape[-1]).contiguous()
+    # left edge of the bracketing segment, clipped so that out-of-range
+    # points use the first/last segment (=> extrapolation)
+    idx = torch.clamp(torch.searchsorted(X, x, right=True) - 1, 0, n - 2)
+    x0 = torch.gather(X, -1, idx)
+    x1 = torch.gather(X, -1, idx + 1)
+    y0 = torch.gather(Y, -1, idx)
+    y1 = torch.gather(Y, -1, idx + 1)
+    w = ((x - x0) / (x1 - x0)).to(Y.real.dtype)
+    return y0 + w * (y1 - y0)
 
 
 def chi2cdf_inv(p: float, k: float) -> float:

@@ -41,13 +41,15 @@ from ..device import resolve_device, tensor, to_capture
 from ..models.decode import decode_back_half_batch_multi
 from ..models.peaks import (PEAK_CAP, cells_from_peak_records, peak_search,
                             peak_search_device)
-from ..models.search import SearchConfig, _stage, compute_z_th1
+from ..models.search import (SearchConfig, compute_z_th1, decode_back_half,
+                             refine_peaks)
 from ..models.sss_detect import sss_foe_batch_fused
 from ..models.xcorr import (KernelOperands, _corr_stage, _fold_stage,
                             _post_fold_stage, combine_start_indices,
                             pss_templates, use_kernel_corr)
 from ..ops import corr_cuda
 from ..ops.corr_fold_cuda import corr_fold_bf16, corr_fold_int8, v4_kv_for
+from ..utils.debug import stage
 
 log = logging.getLogger(__name__)
 
@@ -192,9 +194,10 @@ def scan_band(captures: Sequence[Tuple[np.ndarray, float, float]],
     and each chunk shares its middle carrier's templates.
 
     timings: if a dict is given, each stage's wall seconds, summed over
-    the chunks, are added to it (staging, front_end -- with the device
-    peak search on CUDA --, peak_search on the host route, sss_foe,
-    decode)."""
+    the chunks, are added to it under cell_search's names (staging, then
+    xcorr_pss, the front end; peak_search, on the device or the host;
+    sss_foe_fused, decode_fused; the stages of models/search.py's
+    refine_peaks and decode_back_half where the config takes them)."""
     cfg = config or SearchConfig()
     dev = resolve_device(device)
     f_search_set = np.asarray(f_search_set, dtype=np.float64)
@@ -209,7 +212,7 @@ def scan_band(captures: Sequence[Tuple[np.ndarray, float, float]],
 def _scan_chunk(captures, f_search_set: np.ndarray, fs_programmed: float,
                 cfg: SearchConfig, dev: torch.device,
                 timings: Optional[Dict[str, float]]) -> List[List[Cell]]:
-    with _stage(timings, "staging", dev):
+    with stage("staging", dev, timings):
         capbufs = [np.asarray(c[0]) for c in captures]
         fc_list = [float(c[1]) for c in captures]
         fcp_list = [float(c[2]) for c in captures]
@@ -217,10 +220,11 @@ def _scan_chunk(captures, f_search_set: np.ndarray, fs_programmed: float,
             capbufs, fc_list, f_search_set, fcp_list, fs_programmed)
         route = _plan_scan_bands(tmpl, starts, capbufs, cfg, dev)
         cap_t = to_capture(cap, dev)
-    with _stage(timings, "front_end", dev):
+    with stage("xcorr_pss", dev, timings):
         slabs, pow_c, frq_c, sp_inc = _front_batch(cap_t, tmpl, starts,
                                                    route, cfg.ds_comb_arm)
-        if dev.type == "cuda":
+    if dev.type == "cuda":
+        with stage("peak_search", dev, timings):
             # the chi-squared threshold scale: compute_z_th1 with a unit
             # sp_incoherent (one definition of the detection constant)
             z_scale = float(compute_z_th1(np.float64(1.0), n_comb_xc,
@@ -232,7 +236,6 @@ def _scan_chunk(captures, f_search_set: np.ndarray, fs_programmed: float,
             n_c = len(capbufs)
             vec = torch.cat([recs.reshape(n_c, -1),
                              ns.to(recs.dtype)[:, None]], dim=1).cpu().numpy()
-    if dev.type == "cuda":
         recs_h = vec[:, :-1].reshape(tuple(recs.shape))
         ns_h = np.rint(vec[:, -1]).astype(np.int64)
         if int(ns_h.max()) < PEAK_CAP:
@@ -244,8 +247,8 @@ def _scan_chunk(captures, f_search_set: np.ndarray, fs_programmed: float,
                     fcp_list[i])
                 all_peaks.extend(cells_i)
                 carrier_of.extend([i] * len(cells_i))
-            return _refine_from_peaks(all_peaks, carrier_of, cap_t,
-                                      fs_programmed, cfg, timings)
+            return _refine_from_peaks(all_peaks, carrier_of, cap_t, fc_list,
+                                      fcp_list, fs_programmed, cfg, timings)
         log.warning("band scan: a carrier filled its %d peak records; "
                     "host peak search for this chunk of %d carriers",
                     PEAK_CAP, n_c)
@@ -264,7 +267,7 @@ def refine_band(pow_c: torch.Tensor, frq_c: torch.Tensor,
     """Host back half of a band scan: per-carrier host peak search on the
     front end's [C, ...] maps, then the batched SSS/FOE/decode stages
     over all peaks of all carriers."""
-    with _stage(timings, "peak_search", cap_t.device):
+    with stage("peak_search", cap_t.device, timings):
         pow_c = pow_c.cpu().numpy()
         frq_c = frq_c.cpu().numpy()
         sp_inc = sp_inc.cpu().numpy()
@@ -279,34 +282,51 @@ def refine_band(pow_c: torch.Tensor, frq_c: torch.Tensor,
                                 cfg.ds_comb_arm, refine_slab=slabs[i])
             all_peaks.extend(peaks)
             carrier_of.extend([i] * len(peaks))
-    return _refine_from_peaks(all_peaks, carrier_of, cap_t, fs_programmed,
-                              cfg, timings)
+    return _refine_from_peaks(all_peaks, carrier_of, cap_t, fc_list,
+                              fcp_list, fs_programmed, cfg, timings)
 
 
 def _refine_from_peaks(all_peaks: List[Cell], carrier_of: List[int],
-                       cap_t: torch.Tensor, fs_programmed: float,
+                       cap_t: torch.Tensor, fc_list: Sequence[float],
+                       fcp_list: Sequence[float], fs_programmed: float,
                        cfg: SearchConfig,
                        timings: Optional[Dict[str, float]] = None
                        ) -> List[List[Cell]]:
-    """Batched SSS/FOE/decode back half over a band's peak list: the SSS
-    + fine-FOE stage of every carrier's peaks in one device pass, then
-    the fused decode in one pass per CP type, each peak reading its
-    carrier's row of the capture stack cap_t [C, n_cap]."""
+    """Back half over a band's peak list, each peak reading its carrier's
+    row of the capture stack cap_t [C, n_cap].  batch_peaks: the SSS +
+    fine-FOE stage of every carrier's peaks in one device pass, then the
+    fused decode in one pass per CP type with the hex interpolator, or
+    the staged decode peak by peak with the others.  Otherwise each
+    carrier's peaks go through refine_peaks' peak-at-a-time order."""
     results: List[List[Cell]] = [[] for _ in range(cap_t.shape[0])]
     if not all_peaks:
         return results
+    if not cfg.batch_peaks:
+        for i in range(len(results)):
+            peaks_i = [p for p, c in zip(all_peaks, carrier_of) if c == i]
+            if peaks_i:
+                results[i] = refine_peaks(peaks_i, cap_t[i], fc_list[i],
+                                          fcp_list[i], fs_programmed, cfg,
+                                          timings)
+        return results
     dev = cap_t.device
-    with _stage(timings, "sss_foe", dev):
+    with stage("sss_foe_fused", dev, timings):
         cells = sss_foe_batch_fused(all_peaks, cap_t, carrier_of,
-                                    cfg.thresh2_n_sigma, fs_programmed)
+                                    cfg.thresh2_n_sigma, fs_programmed,
+                                    compat=cfg.compat)
     kept = [(c, ci) for c, ci in zip(cells, carrier_of) if c.n_id_1 >= 0]
-    if cfg.decode and kept:
-        with _stage(timings, "decode", dev):
+    if cfg.decode and kept and cfg.interp == "hex":
+        with stage("decode_fused", dev, timings):
             decoded = decode_back_half_batch_multi(
                 [c for c, _ in kept], cap_t, [ci for _, ci in kept],
                 fs_programmed)
         kept = [(c, ci) for c, (_, ci) in zip(decoded, kept)
                 if c.n_rb_dl >= 0]
+    elif cfg.decode:
+        kept = [(c2, ci) for c, ci in kept
+                if (c2 := decode_back_half(
+                    c, cap_t[ci], fc_list[ci], fcp_list[ci], fs_programmed,
+                    cfg, timings)) is not None]
     for c, ci in kept:
         results[ci].append(c)
     return results

@@ -71,10 +71,10 @@ def _map_operands(precision, n_t, n_cap, seed, device):
 # the tensor-core map kernels: ragged lag tiles (n_lags not a multiple of
 # 256, and 6 lags), T not a multiple of a column group's 4 templates or a
 # block's 32, the production T = 93, and the full width (one 80 ms
-# capture at T = 93)
+# capture at T = 93, and a 160 ms one)
 MAP_SHAPES = [(3, 137 + 5), (9, 9600 + 401), (21, 2 * 9600 + 777),
               (5, 9600 + 401), (16, 2 * 9600 + 777), (93, 2 * 9600 + 777),
-              (93, 153600)]
+              (93, 153600), (93, 307200)]
 
 
 @pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
@@ -460,3 +460,119 @@ def test_scan_band_takes_the_v2_route_on_a_wide_chunk(cuda):
     assert _launched() == {"pss_corr_bf16": 2}
     assert [sorted(c.n_id_cell() for c in cl) for cl in cells] == \
         [sorted(TWO_CELL_TRUTH), []]
+
+
+@pytest.mark.parametrize("kind", ["u8", "it"])
+def test_file_capture_takes_its_kernel(cuda, tmp_path, kind):
+    """A raw rtl_sdr u8 file lies on the 8-bit ADC grid: its cell_search
+    makes exactly one pss_corr_int8 launch; an .it file of the float
+    capture one pss_corr_bf16 launch.  Both decode cells 277 and 271."""
+    from lte_cell_scanner_tpu_torch.io.capture import FileSource
+    from lte_cell_scanner_tpu_torch.utils.itfile import write_itfile
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    cap = two_cell_capture()
+    path = str(tmp_path / f"cap.{kind}")
+    if kind == "u8":
+        complex_to_iq_u8(adc_quantize(cap)).tofile(path)
+    else:
+        write_itfile(path, {"capbuf": cap,
+                            "fc": np.array([int(FC)], np.int32)})
+    capbuf, _fc = FileSource([path]).capture(FC)
+    corr_cuda.reset_launch_counts()
+    cells = cell_search(capbuf, default_f_search_set(FC, 100.0), FC, FC, FS,
+                        device=cuda)
+    torch.cuda.synchronize()
+    name = "pss_corr_int8" if kind == "u8" else "pss_corr_bf16"
+    assert _launched() == {name: 1}
+    assert sorted(c.n_id_cell() for c in cells) == sorted(TWO_CELL_TRUTH)
+    for c in cells:
+        assert (c.n_rb_dl, c.n_ports) == (6, 2)
+
+
+@pytest.mark.parametrize("kw", [{"interp": "2stage"},
+                                {"interp": "freq_time"},
+                                {"compat": "golden"},
+                                {"batch_peaks": False}],
+                         ids=["2stage", "freq_time", "golden",
+                              "peak-at-a-time"])
+def test_search_variants_decode_both_cells_on_the_card(cuda, kw):
+    """Every SearchConfig variant decodes both cells with the default
+    run's ID, CP, ports and SFN (freq_superfine within 1 Hz)."""
+    cap = two_cell_capture()
+    f_set = default_f_search_set(FC, 100.0)
+    want = {c.n_id_cell(): c for c in cell_search(cap, f_set, FC, FC, FS,
+                                                  device=cuda)}
+    got = cell_search(cap, f_set, FC, FC, FS, SearchConfig(**kw),
+                      device=cuda)
+    assert sorted(c.n_id_cell() for c in got) == sorted(TWO_CELL_TRUTH)
+    for c in got:
+        w = want[c.n_id_cell()]
+        assert (c.cp_type, c.n_ports, c.sfn, c.n_rb_dl) == \
+            (w.cp_type, w.n_ports, w.sfn, 6)
+        assert abs(c.freq_superfine - w.freq_superfine) < 1.0
+
+
+def test_long_coupled_capture_decodes_on_the_card(cuda):
+    """160 ms through the coupled crystal channel at 60 kHz: one v2 bf16
+    launch over 307064 lags (31 half frames folded), cell 277 decoded."""
+    from lte_cell_scanner_tpu_torch.io.capture import SimSource
+    cap, _ = SimSource(coupled_fc=FC, freq_offset=60e3,
+                       capture_ms=160).capture(FC)
+    corr_cuda.reset_launch_counts()
+    cells = cell_search(cap, default_f_search_set(FC, 100.0), FC, FC, FS,
+                        device=cuda)
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_bf16": 1}
+    best = {c.n_id_cell(): c for c in cells}[277]
+    assert best.n_rb_dl == 6
+    assert abs(best.freq_fine - 60e3) < 50.0
+
+
+def test_band_of_u8_files_through_the_cli(cuda, tmp_path, capsys):
+    """A 3-carrier band (-e) from three u8 files, one batched scan_band:
+    one chunk, so one pss_corr_fold_int8 launch and no other; the two
+    cells on the first carrier only."""
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    rng = np.random.default_rng(2)
+    paths = []
+    for k in range(3):
+        cap = two_cell_capture() if k == 0 else 0.1 * (
+            rng.normal(size=153600) + 1j * rng.normal(size=153600))
+        paths.append(str(tmp_path / f"c{k}.u8"))
+        complex_to_iq_u8(adc_quantize(cap)).tofile(paths[-1])
+    corr_cuda.reset_launch_counts()
+    assert cli.main(["search", "-s", "739e6", "-e", "739.2e6", "-p", "100",
+                     "--load-files"] + paths) == 0
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_fold_int8": 1}
+    out = capsys.readouterr().out
+    assert "Scanning 3 carriers" in out
+    rows = [ln.split() for ln in out.splitlines()
+            if ln[:4] in ("277 ", "271 ")]
+    assert sorted(r[0] for r in rows) == ["271", "277"]
+    assert all(r[2] == "739M" for r in rows)
+
+
+def test_debug_dump_takes_the_host_route_on_the_card(cuda, tmp_path):
+    """With a debug dump active, cell_search on the card brings the front
+    end's maps back, runs the host peak search and exports them (one
+    kernel launch still), and decodes the same cells."""
+    from lte_cell_scanner_tpu_torch.utils import debug
+    from lte_cell_scanner_tpu_torch.utils.itfile import read_itfile
+    cap = two_cell_capture()
+    f_set = default_f_search_set(FC, 100.0)
+    want = cell_search(cap, f_set, FC, FC, FS, device=cuda)
+    path = str(tmp_path / "dump.it")
+    debug.set_dump(debug.DebugDump(path))
+    try:
+        corr_cuda.reset_launch_counts()
+        got = cell_search(cap, f_set, FC, FC, FS, device=cuda)
+        torch.cuda.synchronize()
+    finally:
+        debug.set_dump(None)
+    assert _launched() == {"pss_corr_bf16": 1}
+    assert read_itfile(path)["xc_incoherent_collapsed_pow"].shape == \
+        (3, 9600)
+    assert [(c.n_id_cell(), c.sfn) for c in got] == \
+        [(c.n_id_cell(), c.sfn) for c in want]

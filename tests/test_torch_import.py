@@ -1,6 +1,6 @@
-"""The PyTorch port, its tools (tools_torch/) and chip_smoke.py stand
-alone: they import neither JAX nor any module of the TPU package
-(lte_cell_scanner_tpu)."""
+"""The PyTorch port, its tools (tools_torch/), bench_torch.py and
+chip_smoke.py stand alone: they import neither JAX nor any module of the
+TPU package (lte_cell_scanner_tpu)."""
 
 import ast
 import json
@@ -31,7 +31,8 @@ def _tool_files():
 
 
 def _sources():
-    return _package_files() + _tool_files() + [ROOT / "chip_smoke.py"]
+    return _package_files() + _tool_files() + [ROOT / "chip_smoke.py",
+                                                ROOT / "bench_torch.py"]
 
 
 def test_module_names_are_matched_exactly():
@@ -67,7 +68,8 @@ def test_importing_the_port_loads_no_jax_module():
         p.relative_to(PKG).with_suffix("")).replace("/", ".")
         for p in _package_files() if p.name != "__init__.py") \
         + ["lte_cell_scanner_tpu_torch"] \
-        + ["tools_torch." + p.stem for p in _tool_files()]
+        + ["tools_torch." + p.stem for p in _tool_files()] \
+        + ["bench_torch"]
     assert "tools_torch.bench_kernels" in mods
     code = (
         "import importlib, json, sys\n"
@@ -80,4 +82,5 @@ def test_importing_the_port_loads_no_jax_module():
                          timeout=120).stdout
     new = json.loads(out.strip().splitlines()[-1])
     assert "lte_cell_scanner_tpu_torch.models.search" in new
+    assert "lte_cell_scanner_tpu_torch.io.capture" in new
     assert [m for m in new if _forbidden(m)] == []

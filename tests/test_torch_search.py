@@ -112,15 +112,27 @@ def test_dedup_keeps_the_strongest_detection():
 
 @pytest.mark.parametrize("field,value", [
     ("skip_ids", frozenset({277})),
-    ("interp", "2stage"),
-    ("compat", "golden"),
-    ("batch_peaks", False),
 ])
 def test_config_from_fields_refuses_unported_behaviour(field, value):
     fields = dataclasses.asdict(js.SearchConfig())
     fields[field] = value
     with pytest.raises(NotImplementedError):
         config_from_fields(fields)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("interp", "2stage"),
+    ("compat", "golden"),
+    ("batch_peaks", False),
+])
+def test_config_from_fields_carries_search_variants(field, value):
+    fields = dataclasses.asdict(js.SearchConfig())
+    fields[field] = value
+    cfg = config_from_fields(fields)
+    assert getattr(cfg, field) == value
+    assert dataclasses.replace(cfg, **{field: getattr(ts.SearchConfig(),
+                                                      field)}) \
+        == ts.SearchConfig()
 
 
 def test_cli_search_on_a_sim_capture(capsys):

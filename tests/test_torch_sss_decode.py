@@ -118,7 +118,7 @@ def test_tfoec_and_mib_on_tfg_vector(tfg_vector):
     # this cell carries it rounded to 1e-4 Hz
     assert abs(out.freq_superfine - gold["freq_superfine"][0]) < 1e-3
 
-    dec = tdec.decode_mib(out, comp)
+    dec = tdec.decode_mib(out, comp, RsDl(277, 6, CpType.NORMAL))
     assert (dec.n_rb_dl, dec.n_ports, dec.sfn) == tuple(gold["mib"]) \
         == (50, 2, 649)
 
