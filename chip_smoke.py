@@ -7,7 +7,9 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from ``lte_cell_scanner_tpu_torch/csrc``
      with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
      sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
-     ``hankel_mma.cuh``), all started together; the ptxas register and
+     ``hankel_mma.cuh``), all started together with the g++ build of the
+     tracker's native runtime (``io/native.py::build``: ``native/*.cpp``
+     into the port's ``build/``); the ptxas register and
      spill lines of the seven tensor-core kernel instances, keyed by trait
      and sink (the five ``map_tc_kernel`` instances: the maps bf16, int8,
      bf16_f32out, int8_scaled and the sum probe; the two of
@@ -102,12 +104,38 @@ Phases, each fatal on failure:
      synchronised);
   8. one band scan under torch.profiler (float band): busy share and top
      device operations;
-  9. the five map_tc_kernel instances' useful rates against this card's
+  9. the streaming tracker (``tracker/``) on the card, launch counts
+     zeroed just before and read just after each run: the native runtime
+     must be the one loaded (no numpy fallback); ``kalibrate`` at
+     +-120 ppm on a coupled sim stream (pss_corr_bf16, T = 111) must find
+     the simulated offset within 50 Hz; kalibrate's T = 111 maps (the
+     +-120 ppm grid) on the float capture (bf16) and the ADC-grid capture
+     (int8, a u8 stream's route) against their plain versions at 153600
+     samples; the background searcher's T = 3
+     maps (its one hypothesis) against their plain versions at 153600
+     samples (int8 bit-equal, bf16 within one bf16 step + 1e-5 x max),
+     timed with their bounds; ``tools_torch/bench_tracker.py``'s
+     ``bench_one`` on 4 cells x 2 ports of ``CELL_PLAN`` (ADC-grid stream,
+     +200 Hz, 12 dB: the searcher's pss_corr_int8, the warmup's
+     pss_corr_bf16) with the searcher inline: every cell tracked, MIB
+     synced, health > 99% and the offset register within 50 Hz of
+     +200 Hz; its realtime factor, tick split and worst tick; the same
+     samples with the asynchronous searcher (its own CUDA stream): the
+     worst tick while a search is in flight; 1 cell's realtime factor;
+     one device-loop tick (4 cells x 256 symbols) on the card against the
+     port's float64 CPU program on the same inputs, from a block on the
+     8-bit ADC grid (float16 planes) and from a Gaussian block (float32
+     planes) (difference printed; beyond 1e-3 x max fails); the 400 ms test stream of
+     tests/test_tracker.py through the card's and the CPU's device loops
+     (frame timing, offset, health, MIB failures, each difference printed
+     beside the TPU package's device-loop tolerance);
+ 10. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
      launches are those of phase 5b; each with its ``file_launches`` of
-     phase 4b), then the result line.
+     phase 4b and its ``tracker_launches`` of phase 9, rows 1-2 with their
+     ``searcher_t3`` record), then the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -202,10 +230,18 @@ def phase_build() -> dict:
     """Builds every source; returns nvcc's output (with ptxas' report) by
     source name."""
     from lte_cell_scanner_tpu_torch.cuda_build import SOURCES, build
+    from lte_cell_scanner_tpu_torch.io import native
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    # one nvcc per source and the native runtime's g++, all started
+    # together
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host = pool.submit(native.build)
         builds = list(zip(SOURCES, pool.map(build, SOURCES)))
+        try:
+            secs, _log = host.result()
+        except RuntimeError as e:
+            fail(f"native runtime build: {e}")
+    print(f"built {native.LIB_PATH.name} (native runtime) in {secs:.2f} s")
     for name, (secs, log) in builds:
         print(f"built {name} in {secs:.2f} s")
         for line in log.splitlines():
@@ -1175,6 +1211,307 @@ def run_band_path(label: str, band, f_set, precision: str,
               f"{k} {v:.5f}" for k, v in stages.items()))
 
 
+KAL_FOFF = 31e3            # kalibrate's simulated crystal offset (Hz)
+TRACKER_F_OFF = 200.0      # bench_tracker's MultiCellStream offset (Hz)
+TRACKER_RUNS = 2           # timed segments per tracker run
+TRACKER_SECONDS = 2.0      # stream-seconds per timed segment
+# the TPU package's device-loop tolerances (tests/test_tracker.py:917-930)
+DL_TOL = {"frame_timing": (0.0, 1e-6), "frequency_offset": (1e-9, 1e-6)}
+
+
+class _Recorded:
+    """A stream that keeps what it hands out, so a second run can replay
+    the same samples."""
+
+    def __init__(self, src):
+        self.src = src
+        self.parts = []
+
+    def take(self, n: int) -> np.ndarray:
+        x = self.src.take(n)
+        self.parts.append(x)
+        return x
+
+
+class _Replay:
+    """The samples a _Recorded stream handed out, then its source's
+    next ones."""
+
+    def __init__(self, rec: _Recorded):
+        self.src = rec.src
+        self.pending = np.concatenate(rec.parts)
+
+    def take(self, n: int) -> np.ndarray:
+        x = self.pending[:n]
+        self.pending = self.pending[n:]
+        if len(x) < n:
+            x = np.concatenate([x, self.src.take(n - len(x))])
+        return x
+
+
+def tracker_launches(label: str, expect, counts: dict) -> dict:
+    """read_launches, each kernel of ``expect`` at least once, the counts
+    added to ``counts``."""
+    launched = read_launches(label, expect)
+    for k, v in launched.items():
+        counts[k] = counts.get(k, 0) + v
+    return launched
+
+
+def check_tracked(label: str, res: dict, want_ids) -> None:
+    ids = sorted(c["n_id_cell"] for c in res["tracked"])
+    print(f"{label}: tracked {ids}, offset register "
+          f"{res['frequency_offset']:.3f} Hz; " + "; ".join(
+              f"cell {c['n_id_cell']} health {c['health']:.1f}% MIB "
+              f"{'synced' if c['mib_synced'] else 'NOT synced'} frame "
+              f"timing {c['frame_timing']:.3f}" for c in res["tracked"]))
+    if ids != sorted(want_ids):
+        fail(f"{label}: tracked {ids}, expected {sorted(want_ids)}")
+    for c in res["tracked"]:
+        if not (c["mib_synced"] and c["health"] > 99.0):
+            fail(f"{label}: cell {c['n_id_cell']} not held: {c}")
+    if abs(res["frequency_offset"] - TRACKER_F_OFF) > 50.0:
+        fail(f"{label}: offset register {res['frequency_offset']} Hz")
+
+
+def print_tracker_run(label: str, res: dict, smi: str) -> None:
+    split = ", ".join(f"{k} {v:.3f}" for k, v in
+                      res["split_ms_per_stream_s"].items())
+    print(f"{label}: realtime_factor {res['value']:.4f} (best of "
+          f"{len(res['factors'])}: " + ", ".join(
+              f"{f:.4f}" for f in res["factors"]) + f") on {smi}")
+    print(f"{label}: tick split, ms per stream-second: {split}")
+    print(f"{label}: tick median {res['median_tick_ms']:.3f} ms, worst "
+          f"{res['worst_tick_ms']:.3f} ms (a tick is "
+          f"{res['tick_ms_stream']:.3f} ms of stream); "
+          f"{res['searches_integrated']} searches integrated, "
+          f"{res['ticks_search_in_flight']} ticks with a search in flight"
+          + ("" if res["worst_tick_ms_search_in_flight"] is None else
+             f", worst of those {res['worst_tick_ms_search_in_flight']:.3f}"
+             f" ms") + f"; warmup {res['warmup_s']:.2f} s, acquisition "
+          f"{res['acquisition_stream_s']:.3f} s of stream")
+
+
+def searcher_maps(cap_float, cap_adc, records: dict) -> None:
+    """The background searcher's T = 3 maps (one hypothesis) on the main
+    path's operands at full capture length, against their plain
+    versions, timed beside them with their bound."""
+    from lte_cell_scanner_tpu_torch.constants import CAPLENGTH, PSS_TD_LEN
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    n_lags = CAPLENGTH - (PSS_TD_LEN - 1)
+    f1 = np.array([TRACKER_F_OFF])
+    for precision, cap in (("bf16", cap_float), ("int8", cap_adc)):
+        kern, cap_q = kernel_operands(cap, f1)
+        if kern.precision != precision or kern.taps.shape[1] != 3:
+            fail(f"searcher staging: {kern.precision}, T = "
+                 f"{kern.taps.shape[1]}")
+        err = map_parity(precision, kern, cap_q, n_lags)
+        wrapper = corr_cuda.corr_pow_int8 if precision == "int8" \
+            else corr_cuda.corr_pow_bf16
+        plain = corr_cuda.corr_pow_int8_plain if precision == "int8" \
+            else corr_cuda.corr_pow_bf16_plain
+        ms = time_cuda(lambda: wrapper(cap_q, kern.taps, n_lags,
+                                       packed=kern.packed))
+        words = corr_cuda.capture_words(cap_q[None])[0]
+        out = torch.empty((3, n_lags), dtype=torch.bfloat16,
+                          device=cap_q.device)
+        bare_ms = time_cuda(lambda: corr_cuda._launch_tc(
+            f"pss_corr_{precision}", words, kern.packed, out, 3, n_lags))
+        plain_ms = time_cuda(lambda: plain(cap_q, kern.taps, n_lags))
+        library_ms = time_cuda(library_call(cap_q, kern.taps, n_lags))
+        bound_ms, bound_by = bound(precision, cap_q, kern.taps, n_lags)
+        print(f"searcher map T = 3 ({precision}, {n_lags} lags): wrapper "
+              f"{ms:.4f} ms, bare launch {bare_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; library conv1d "
+              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+              f"max |err| {err:.3e}; grid "
+              f"{corr_cuda.map_tc_grid(f'pss_corr_{precision}', 3, n_lags)}")
+        records[precision]["searcher_t3"] = {
+            "max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+        del kern, cap_q, words, out
+
+
+def kalibrate_maps(cap_float, cap_adc) -> None:
+    """kalibrate's +-120 ppm grid (T = 111 templates) on the main path's
+    operands at full capture length: the bf16 map of the float capture
+    and the int8 map of the ADC-grid capture (the u8 stream's route)
+    against their plain versions."""
+    from lte_cell_scanner_tpu_torch.constants import CAPLENGTH, PSS_TD_LEN
+    from lte_cell_scanner_tpu_torch.models.search import \
+        default_f_search_set
+    n_lags = CAPLENGTH - (PSS_TD_LEN - 1)
+    f_set = default_f_search_set(FC, 120.0)
+    for precision, cap in (("bf16", cap_float), ("int8", cap_adc)):
+        kern, cap_q = kernel_operands(cap, f_set)
+        if kern.precision != precision or kern.taps.shape[1] != 111:
+            fail(f"kalibrate staging: {kern.precision}, T = "
+                 f"{kern.taps.shape[1]}")
+        err = map_parity(precision, kern, cap_q, n_lags)
+        print(f"kalibrate map T = 111 ({precision}, {n_lags} lags): max "
+              f"|err| {err:.3e}")
+        del kern, cap_q
+
+
+def tick_against_cpu() -> None:
+    """One device-loop tick (4 cells x 256 symbols, 2 ports) of the
+    card's program against the port's float64 CPU program on the same
+    staged inputs, on both wire routes: a block on the 8-bit ADC grid
+    (float16 planes, the u8 stream's route) and a Gaussian block
+    (float32 planes on the card).  The packed vector's demodulated rows
+    (CRS and special rows, from the block) and its last 4 entries (each
+    cell's final phase, from the metadata alone) are held apart."""
+    from lte_cell_scanner_tpu_torch.tracker.device_loop import (
+        _tick_program, download)
+    from tools_torch.bench_tracker_device import staged_tick
+    for adc, wire in ((True, torch.float16), (False, torch.float32)):
+        args = staged_tick(4, 256, "cuda", adc_grid=adc)
+        if args[0].dtype != wire:
+            fail(f"tick staging: planes {args[0].dtype}, expected {wire}")
+        got = download(_tick_program(*args))
+        ref = _tick_program(*staged_tick(4, 256, "cpu", adc_grid=adc)) \
+            .numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            fail(f"tick on the card ({wire}): shape {got.shape}, finite "
+                 f"{np.isfinite(got).all()}")
+        for part, sl in (("rows", slice(None, -4)),
+                         ("final phases", slice(-4, None))):
+            err = float(np.abs(got[sl] - ref[sl]).max())
+            scale = float(np.abs(ref[sl]).max())
+            print(f"device-loop tick (4 cells x 256 symbols, {wire} planes) "
+                  f"on the card vs the float64 CPU program, {part}: max "
+                  f"|diff| {err:.3e} of max |value| {scale:.3e} "
+                  f"({err / scale:.3e} relative; float32 on the card)")
+            if not err <= 1e-3 * scale:
+                fail(f"the card's tick ({wire} planes) disagrees with the "
+                     f"CPU program in its {part}")
+
+
+def trajectory_against_cpu() -> None:
+    """The 400 ms stream of tests/test_tracker.py:23-35 through the
+    card's device loop (float32 demod and phase register) and the CPU's
+    (float64): each quantity with its difference beside the TPU
+    package's device-loop tolerance.  The card run must hold the cell."""
+    from lte_cell_scanner_tpu_torch.cell import CpType
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.sim import (apply_freq_offset, awgn,
+                                                create_dl_sig)
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    rng = np.random.default_rng(11)
+    sig = create_dl_sig(CpType.NORMAL, 400, 0, 92, 1, 0.4, rng=rng,
+                        n_ports=2, sfn=4)
+    sig = awgn(apply_freq_offset(sig, 300.0), 5.0, rng=rng)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = TrackerRunner(FC, FC, FS_WORK, device_loop=True, device=dev)
+        for i in range(0, len(sig), 10000):
+            r.process_block(sig[i: i + 10000])
+        runs[dev] = r
+    card, ref = runs["cuda"], runs["cpu"]
+    ids = [c.n_id_cell for c in card.cells]
+    if ids != [277] or [c.n_id_cell for c in ref.cells] != [277]:
+        fail(f"400 ms stream: card tracked {ids}, CPU "
+             f"{[c.n_id_cell for c in ref.cells]}")
+    tg, tr = card.cells[0], ref.cells[0]
+    if not (tg.health_pct() > 99.0
+            and card.processors[277].mib_fifo_synchronized
+            and abs(card.state.frequency_offset - 300.0) < 50.0):
+        fail(f"400 ms stream on the card: health {tg.health_pct()}, "
+             f"offset {card.state.frequency_offset}")
+    for name, g, w in (("frame_timing", tg.frame_timing, tr.frame_timing),
+                       ("frequency_offset", card.state.frequency_offset,
+                        ref.state.frequency_offset)):
+        rtol, atol = DL_TOL[name]
+        ok = abs(g - w) <= atol + rtol * abs(w)
+        print(f"400 ms stream, card vs float64 CPU device loop: {name} "
+              f"{g:.9f} vs {w:.9f}, |diff| {abs(g - w):.3e} "
+              f"({'within' if ok else 'BEYOND'} the TPU package's "
+              f"tolerance rtol {rtol:g} atol {atol:g})")
+    print(f"400 ms stream: health {tg.health_pct():.1f}% vs "
+          f"{tr.health_pct():.1f}%, MIB failures {tg.mib_decode_failures} "
+          f"vs {tr.mib_decode_failures}, sync SP av rel diff "
+          f"{abs(tg.sync_sp_av / tr.sync_sp_av - 1):.3e}, CRS NP av rel "
+          f"diff {float(np.max(np.abs(tg.crs_np_av / tr.crs_np_av - 1))):.3e}")
+
+
+def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
+    """Phase 9; returns the tracker path's launch counts."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.io import native
+    from lte_cell_scanner_tpu_torch.io.capture import SimSource
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.tracker.runner import kalibrate
+    from tools_torch.bench_tracker import (CELL_PLAN, SNR_DB,
+                                           MultiCellStream, bench_one)
+    t_phase = time.perf_counter()
+    lib = native.load()
+    if native.get_lib() is not lib:
+        fail("the native runtime is not the library the tracker uses")
+    print(f"native runtime loaded: {native.LIB_PATH.name}")
+    counts = {}
+
+    src = SimSource(freq_offset=KAL_FOFF, coupled_fc=FC, seed=5)
+    corr_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    fo = kalibrate(lambda: src.capture(FC)[0], FC, FC, FS_WORK, ppm=120.0,
+                   max_tries=2, device="cuda")
+    secs = time.perf_counter() - t0
+    tracker_launches("kalibrate (+-120 ppm, T = 111)", {"pss_corr_bf16"},
+                     counts)
+    print(f"kalibrate: offset {fo:.3f} Hz (simulated {KAL_FOFF:.0f} Hz) in "
+          f"{secs:.3f} s")
+    if abs(fo - KAL_FOFF) > 50.0:
+        fail(f"kalibrate found {fo} Hz")
+
+    kalibrate_maps(cap_float, cap_adc)
+    searcher_maps(cap_float, cap_adc, records)
+
+    want = [3 * n_id_1 + 1 for n_id_1, _s, _f in CELL_PLAN[:4]]
+    rec = _Recorded(MultiCellStream(4, SNR_DB, f_off=TRACKER_F_OFF))
+    corr_cuda.reset_launch_counts()
+    res4 = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
+                     stream=rec, verbose=False)
+    tracker_launches("tracker, 4 cells x 2 ports, inline searcher",
+                     {"pss_corr_int8", "pss_corr_bf16"}, counts)
+    check_tracked("tracker, 4 cells x 2 ports", res4, want)
+    print_tracker_run("tracker, 4 cells x 2 ports, inline searcher", res4,
+                      smi)
+
+    corr_cuda.reset_launch_counts()
+    res_async = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
+                          stream=_Replay(rec), search_async=True,
+                          verbose=False)
+    tracker_launches("tracker, 4 cells x 2 ports, async searcher",
+                     {"pss_corr_int8", "pss_corr_bf16"}, counts)
+    check_tracked("tracker, 4 cells x 2 ports, async searcher", res_async,
+                  want)
+    print_tracker_run("tracker, 4 cells x 2 ports, async searcher",
+                      res_async, smi)
+
+    corr_cuda.reset_launch_counts()
+    res1 = bench_one(1, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
+                     verbose=False)
+    tracker_launches("tracker, 1 cell x 2 ports",
+                     {"pss_corr_int8", "pss_corr_bf16"}, counts)
+    check_tracked("tracker, 1 cell x 2 ports", res1, want[:1])
+    print_tracker_run("tracker, 1 cell x 2 ports", res1, smi)
+
+    tick_against_cpu()
+    trajectory_against_cpu()
+    during = res_async["worst_tick_ms_search_in_flight"]
+    print(f"tracker summary on {smi}: realtime_factor 4 cells "
+          f"{res4['value']:.4f} (async searcher {res_async['value']:.4f}), "
+          f"1 cell {res1['value']:.4f}; worst tick {res4['worst_tick_ms']:.3f}"
+          f" ms inline, with an async search in flight "
+          + ("not measured (no search in flight in the timed ticks)"
+             if during is None else f"{during:.3f} ms"))
+    print(f"phase 9: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -1259,6 +1596,8 @@ def main() -> int:
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
+    tracker_counts = phase_tracker(cap_float, cap_adc, records, smi)
+
     # each map_tc_kernel instance against its ruler of phase 5b
     for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
                      (ab_records["pss_corr_bf16_f32out"], "bf16_f32out"),
@@ -1283,6 +1622,7 @@ def main() -> int:
         kernels.append(rec)
     for rec in kernels:
         rec["file_launches"] = file_counts.get(rec["name"], 0)
+        rec["tracker_launches"] = tracker_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,20 @@
-"""Command-line cell search on one carrier or a band of carriers.
+"""Command-line cell search on one carrier or a band of carriers, and
+the realtime multi-cell tracker.
 
 Behavioral contract: the reference CellSearch CLI
 (reference src/CellSearch.cpp:92-280: --freq-start/-s, --freq-end/-e,
 --ppm/-p, --correction/-c, --record/-r, --load/-l, --data-dir/-d,
 --device-index/-i; 100 kHz raster rounding, record/load exclusivity;
 results table :576-614) plus the reference tracker's hidden replay flags
-(--drop, --repeat, --noise-power).  Captures come from recorded files
-(``capbuf_XXXX.it`` with -l, or .it / raw rtl_sdr u8 files with
---load-files) or the synthetic eNodeB (--sim); live dongles are not
-supported yet.  A band (-s .. -e on the 100 kHz raster) runs as one
-batched band scan on the card (parallel/carriers.py::scan_band) and
-carrier by carrier on the CPU (--shard-carriers / --no-shard-carriers
-choose).
+(--drop, --repeat, --noise-power), and the reference LTE-Tracker CLI
+(reference src/LTE-Tracker.cpp:114-373: --freq/-f; the tracker/
+package, kalibrate, warmup, the text or curses dashboard).  Captures
+come from recorded files (``capbuf_XXXX.it`` with -l, or .it / raw
+rtl_sdr u8 files with --load-files) or the synthetic eNodeB (--sim);
+live dongles are not supported yet.  A band (-s .. -e on the 100 kHz
+raster) runs as one batched band scan on the card
+(parallel/carriers.py::scan_band) and carrier by carrier on the CPU
+(--shard-carriers / --no-shard-carriers choose).
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.cli search -s 739e6 \
@@ -22,6 +25,8 @@ Usage:
         --sim -p 100
     python -m lte_cell_scanner_tpu_torch.cli search -s 739e6 --sim \
         --device cpu -p 10
+    python -m lte_cell_scanner_tpu_torch.cli track -f 739e6 --sim \
+        --duration 5 --no-tui
 """
 
 from __future__ import annotations
@@ -73,18 +78,21 @@ def _print_cells(cells, correction: float) -> None:
               f"{pr} {corr_new:.20g}")
 
 
+LIVE_ERROR = "Error: live capture from a dongle is not supported yet; use "
+
+
 def _make_source(args):
     from .cell import CpType
     from .io.capture import FileSource, SimSource
     if args.sim:
         if not 0 <= args.sim_cell <= 503:
             raise SystemExit("Error: --sim-cell must be in 0..503")
+        fc = getattr(args, "freq_start", None) or args.freq
         return SimSource(n_id_1=args.sim_cell // 3, n_id_2=args.sim_cell % 3,
                          cp_type=CpType(args.sim_cp), n_ports=args.sim_ports,
                          snr_db=args.sim_snr, freq_offset=args.sim_foff,
-                         capture_ms=args.capture_ms,
-                         coupled_fc=args.freq_start if args.sim_coupled
-                         else 0.0)
+                         capture_ms=getattr(args, "capture_ms", 80),
+                         coupled_fc=fc if args.sim_coupled else 0.0)
     return FileSource(args.load_files, drop_seconds=args.drop,
                       repeat=args.repeat, noise_power=args.noise_power)
 
@@ -133,8 +141,7 @@ def cmd_search(args) -> int:
               "period regardless of frame phase needs an 80 ms capture)")
         return 1
     if not (args.sim or args.load or args.load_files):
-        print("Error: live capture from a dongle is not supported yet; "
-              "use --sim, -l/--load or --load-files")
+        print(LIVE_ERROR + "--sim, -l/--load or --load-files")
         return 1
     source = _make_source(args)
     if args.load:
@@ -196,6 +203,212 @@ def cmd_search(args) -> int:
         print()
         print(profile_report())
     return 0
+
+
+def cmd_track(args) -> int:
+    import torch
+
+    from .constants import FS_WORK
+    from .device import resolve_device
+    from .interop import _BACKENDS
+    from .models.search import SearchConfig
+    from .tracker import TrackerRunner
+    from .tracker.display import render
+    from .tracker.runner import kalibrate
+
+    if args.brief:
+        args.verbose = 0
+    if args.ppm < 0:
+        print("Error: ppm value must be positive")
+        return 1
+    if abs(args.correction - 1) > 1000e-6:
+        print("Warning: crystal correction factor appears to be "
+              "unreasonable")
+    if not (args.sim or args.load_files):
+        print(LIVE_ERROR + "--sim or --load-files")
+        return 1
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("Error: no CUDA device (the tracker runs on the card; "
+              "--device cpu runs it on the host)")
+        return 1
+    source = _make_source(args)
+    if args.shard_search:
+        # the multi-device searcher is not ported: one device, as the
+        # reference package does when one device is visible
+        print("Warning: --shard-search requested but only one device is "
+              "visible; running single-device")
+
+    # kalibrate bootstrap (reference LTE-Tracker.cpp:565-741): run a
+    # full +-ppm cell search on one capture and seed the dongle FO
+    # register from the strongest cell's superfine estimate -- without
+    # it the single-hypothesis background searcher cannot acquire
+    # beyond ~+-2.5 kHz of crystal error.
+    initial_fo = 0.0
+    if not args.no_kalibrate:
+        if args.verbose:
+            print(f"kalibrate: searching +-{args.ppm:g} ppm for a cell ...")
+        try:
+            initial_fo = kalibrate(
+                lambda: source.capture(args.freq)[0], args.freq,
+                args.freq, FS_WORK, ppm=args.ppm,
+                max_tries=args.kalibrate_tries or None, device=dev)
+            if args.verbose:
+                print(f"kalibrate: dongle frequency offset "
+                      f"{initial_fo:.1f} Hz")
+        except (RuntimeError, ValueError) as e:
+            # no cell in the tries allowed, or a file source ran out
+            print(f"kalibrate found no cell ({e}); starting at 0 Hz")
+
+    runner = TrackerRunner(args.freq, args.freq, FS_WORK,
+                           initial_fo=initial_fo,
+                           search_config=SearchConfig(
+                               corr_backend=_BACKENDS[args.corr_backend]),
+                           search_period=args.search_period,
+                           search_async=args.async_search,
+                           search_duty=args.search_duty,
+                           parallel_cells=args.parallel_cells,
+                           debug_knobs=tuple(
+                               getattr(args, f"g{i}") for i in
+                               range(1, 10)),
+                           device=dev)
+    if not args.no_warmup:
+        if args.verbose:
+            print("Compiling the search/decode path (one-time warmup) ...")
+        runner.warmup()
+
+    block = 10000
+    if sys.stdout.isatty() and not args.no_tui:
+        # the reference's live ncurses dashboard (display_thread.cpp)
+        from .tracker.tui import run_tui
+        stream = iter(source.stream(block))
+        n_blocks = [0]
+
+        def process_for(seconds: float) -> bool:
+            n = max(1, int(args.fs * seconds) // block)
+            for _ in range(n):
+                if args.duration and \
+                        n_blocks[0] * block / args.fs >= args.duration:
+                    return False
+                samples = next(stream, None)
+                if samples is None:
+                    return False
+                runner.process_block(samples)
+                n_blocks[0] += 1
+            return True
+
+        try:
+            run_tui(process_for, runner.state, lambda: runner.cells)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            runner.close()
+        print(render(runner.state, runner.cells, plots=args.expert))
+        return 0
+
+    n_blocks = 0
+    report_every = max(1, int(args.fs * 1.0) // block)
+    try:
+        for samples in source.stream(block):
+            runner.process_block(samples)
+            n_blocks += 1
+            if n_blocks % report_every == 0:
+                print(render(runner.state, runner.cells,
+                             plots=args.expert))
+                print("-" * 70)
+            if args.duration and n_blocks * block / args.fs >= args.duration:
+                break
+    except KeyboardInterrupt:
+        pass
+    finally:
+        runner.close()
+    print(render(runner.state, runner.cells, plots=args.expert))
+    return 0
+
+
+def _add_track_parser(sub) -> None:
+    pt = sub.add_parser("track", help="realtime multi-cell tracker")
+    pt.add_argument("-f", "--freq", type=float, required=True)
+    pt.add_argument("--fs", type=float, default=1.92e6)
+    pt.add_argument("--load-files", nargs="*", default=None)
+    pt.add_argument("--sim", action="store_true")
+    pt.add_argument("--sim-snr", type=float, default=10.0)
+    pt.add_argument("--sim-foff", type=float, default=0.0)
+    pt.add_argument("--sim-ports", type=int, default=2, choices=(1, 2, 4),
+                    help="sim eNodeB TX ports (4 = SFBC+FSTD)")
+    pt.add_argument("--sim-cp", default="normal",
+                    choices=("normal", "extended"))
+    pt.add_argument("--sim-cell", type=int, default=277,
+                    help="sim cell ID (0..503)")
+    pt.add_argument("--sim-coupled", action="store_true",
+                    help="apply --sim-foff through the coupled-crystal "
+                         "channel (carrier + sample clock offset together)")
+    pt.add_argument("--noise-power", type=float, default=None)
+    pt.add_argument("--drop", type=float, default=0.0)
+    pt.add_argument("--repeat", action="store_true")
+    pt.add_argument("--duration", type=float, default=None,
+                    help="seconds of stream to process")
+    pt.add_argument("--search-period", type=float, default=1.0,
+                    help="min stream-seconds between background-search "
+                         "cycles once tracking (0 = every capture, the "
+                         "reference's continuous low-priority cadence)")
+    pt.add_argument("--search-duty", type=float, default=0.5,
+                    help="max share of the background searcher once "
+                         "tracking: the next search waits until "
+                         "cycle_time/duty stream-seconds since the last "
+                         "(0 = period-only cadence)")
+    pt.add_argument("--parallel-cells", type=int, default=0,
+                    help=">1: run each cell's tracker tick on a worker "
+                         "pool of this size (the reference's "
+                         "thread-per-cell layout; ignored in device-loop "
+                         "mode, which batches all cells in one tick)")
+    pt.add_argument("--async-search", action="store_true",
+                    help="run the background searcher on a nice+19 "
+                         "worker thread (and its own CUDA stream) "
+                         "concurrent with streaming; use with "
+                         "wall-clock-paced sources -- file/sim replay "
+                         "feeds faster than realtime")
+    pt.add_argument("--shard-search", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="run the background searcher over several "
+                         "devices (not ported: warns and runs on one)")
+    pt.add_argument("-p", "--ppm", type=float, default=120.0,
+                    help="crystal-error window for the kalibrate "
+                         "bootstrap search")
+    pt.add_argument("-c", "--correction", type=float, default=1.0)
+    pt.add_argument("-i", "--device-index", type=int, default=-1,
+                    help="dongle index (live capture; not supported yet)")
+    pt.add_argument("--corr-backend", default="auto",
+                    choices=("auto", "pallas", "xla", "kernel", "exact"),
+                    help="correlation backend of kalibrate and the "
+                         "background searcher (as for search)")
+    pt.add_argument("--kalibrate-tries", type=int, default=0,
+                    help="max kalibrate search attempts (0 = retry "
+                         "until a cell is found, the reference's loop; "
+                         "bounded file replay ends the loop by running "
+                         "out of captures)")
+    pt.add_argument("--no-kalibrate", action="store_true",
+                    help="skip the initial wide-ppm calibration search")
+    pt.add_argument("-v", "--verbose", action="count", default=1)
+    pt.add_argument("-b", "--brief", action="store_true",
+                    help="reduce status messages (reference -b)")
+    pt.add_argument("--no-warmup", action="store_true",
+                    help="skip the one-time search-path warmup before "
+                         "streaming (first acquisition will stall)")
+    pt.add_argument("-x", "--expert", action="store_true",
+                    help="show ASCII channel/autocorrelation plots")
+    pt.add_argument("--no-tui", action="store_true",
+                    help="disable the interactive curses dashboard even "
+                         "on a tty (plain periodic prints)")
+    pt.add_argument("--device", default=None,
+                    help="torch device to run on (default: cuda)")
+    for i in range(1, 10):
+        # the reference's hidden generic debug knobs
+        # (LTE-Tracker.cpp:158-166); carried on GlobalState.g, consumed
+        # by no production path
+        pt.add_argument(f"--g{i}", type=float, default=0.0,
+                        help=argparse.SUPPRESS)
+    pt.set_defaults(func=cmd_track)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -270,11 +483,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "forces the serial per-carrier loop)")
     ps.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
+    ps.set_defaults(func=cmd_search)
+    _add_track_parser(sub)
     args = p.parse_args(argv)
     if args.load_files is None:
         args.load_files = []
     try:
-        return cmd_search(args)
+        return args.func(args)
     except FileNotFoundError as e:
         print(f"Error: file not found: {e.filename}", file=sys.stderr)
         return 1

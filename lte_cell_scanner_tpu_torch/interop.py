@@ -1,10 +1,12 @@
 """Build the port's records from plain fields.
 
 The search carries no trained weights; what passes between its stages is
-the peak and cell list plus host-built tables.  These helpers take plain
-numbers (for example ``dataclasses.asdict`` of another implementation's
-cell or search configuration, with enums as members or their values) so
-a caller can feed one stage's output into the port's later stages.  The
+the peak and cell list plus host-built tables, and the tracker carries
+state (its tracked cells and the dongle-level registers).  These helpers
+take plain numbers (for example ``dataclasses.asdict`` of another
+implementation's cell, search configuration, tracked cell or global
+state, with enums as members or their values) so a caller can feed one
+stage's output into the port's later stages, or seed a tracker.  The
 ``taps_from_*`` helpers turn the TPU package's correlation band matrices
 (as numpy arrays) back into the port's template planes, so the two
 implementations can be fed the same quantized operands.
@@ -21,6 +23,7 @@ import torch
 from .cell import Cell, CpType, PhichDuration, PhichResource
 from .constants import PSS_TD_LEN
 from .models.search import SearchConfig
+from .tracker.state import GlobalState, TrackedCell
 
 _ENUMS = {"cp_type": CpType, "phich_duration": PhichDuration,
           "phich_resource": PhichResource}
@@ -36,27 +39,48 @@ def _enum_value(cls, v):
     return cls(v)
 
 
-def cell_from_fields(d: dict) -> Cell:
-    """A Cell from a mapping of its field names to plain values."""
-    names = {f.name for f in dataclasses.fields(Cell)}
+def _record_from_fields(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
     if unknown:
-        raise ValueError(f"unknown Cell fields: {sorted(unknown)}")
-    kw = {k: (_enum_value(_ENUMS[k], v) if k in _ENUMS else v)
-          for k, v in d.items()}
-    return Cell(**kw)
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+    kw = {}
+    for k, v in d.items():
+        if k in _ENUMS:
+            v = _enum_value(_ENUMS[k], v)
+        elif isinstance(v, np.ndarray):
+            v = v.copy()
+        kw[k] = v
+    return cls(**kw)
+
+
+def cell_from_fields(d: dict) -> Cell:
+    """A Cell from a mapping of its field names to plain values."""
+    return _record_from_fields(Cell, d)
+
+
+def tracked_cell_from_fields(d: dict) -> TrackedCell:
+    """A TrackedCell from plain fields (its arrays copied)."""
+    return _record_from_fields(TrackedCell, d)
+
+
+def global_state_from_fields(d: dict) -> GlobalState:
+    """A GlobalState from plain fields (``g`` as any sequence)."""
+    d = dict(d)
+    if "g" in d:
+        d["g"] = tuple(float(x) for x in d["g"])
+    return _record_from_fields(GlobalState, d)
 
 
 def config_from_fields(d: dict) -> SearchConfig:
-    """A SearchConfig from plain fields.  skip_ids, which the port does
-    not have yet, must be empty; corr_backend names are translated."""
+    """A SearchConfig from plain fields; corr_backend names are
+    translated, skip_ids becomes a frozenset."""
     kw = {}
     for k, v in d.items():
-        if k == "skip_ids":
-            if v:
-                raise NotImplementedError("skip_ids is not ported")
-        elif k == "corr_backend":
+        if k == "corr_backend":
             kw[k] = _BACKENDS[v]
+        elif k == "skip_ids":
+            kw[k] = frozenset(int(i) for i in v)
         else:
             kw[k] = v
     names = {f.name for f in dataclasses.fields(SearchConfig)}

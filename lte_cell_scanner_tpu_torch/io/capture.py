@@ -5,20 +5,21 @@ capbuf.cpp:81-200): 80 ms capture from the dongle or from a recorded
 ``capbuf_XXXX.it`` file (fields ``capbuf`` + ``fc``); ``--record`` writes
 the same files.  Raw ``rtl_sdr``-format u8 files are read through
 utils.rtl.  The ``CaptureSource`` protocol is the seam where a live
-dongle plugs in; the port has none yet, nor the tracker's continuous
-streams.
+dongle plugs in (the port has none yet): ``capture`` gives one buffer
+for the searches, ``stream`` the tracker's continuous sample blocks.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from ..cell import CpType
-from ..constants import CAPLENGTH
-from ..sim.channel import apply_coupled_offset, apply_freq_offset, awgn
+from ..constants import CAPLENGTH, FS_WORK
+from ..sim.channel import (ClockResampler, apply_coupled_offset,
+                           apply_freq_offset, awgn)
 from ..sim.dl_sig import create_dl_sig
 from ..utils.itfile import read_itfile, write_itfile
 from ..utils.rtl import read_rtlsdr_file
@@ -30,6 +31,11 @@ class CaptureSource:
 
     def capture(self, fc_requested: float) -> Tuple[np.ndarray, float]:
         """Return (capbuf, fc_programmed)."""
+        raise NotImplementedError
+
+    def stream(self, block: int = 10000) -> Iterator[np.ndarray]:
+        """Yield consecutive sample blocks of ``block`` samples (a
+        bounded source may end with a shorter one, or stop)."""
         raise NotImplementedError
 
 
@@ -77,6 +83,19 @@ class FileSource(CaptureSource):
             buf = _add_noise(buf, self.noise_power, self.rng)
         return buf, fc_requested
 
+    def stream(self, block: int = 10000) -> Iterator[np.ndarray]:
+        """Every file whole, in order, cut into blocks (each file's last
+        block may be short); again from the first with ``repeat``."""
+        while True:
+            for path in self.paths:
+                buf = self._load(path)
+                if self.noise_power is not None:
+                    buf = _add_noise(buf, self.noise_power, self.rng)
+                for i in range(0, len(buf), block):
+                    yield buf[i: i + block]
+            if not self.repeat:
+                return
+
 
 class SimSource(CaptureSource):
     """Synthetic eNodeB source (fault injection / self-test)."""
@@ -111,6 +130,42 @@ class SimSource(CaptureSource):
         else:
             sig = apply_freq_offset(sig, self.freq_offset)
         return awgn(sig, self.snr_db, rng=self.rng), fc_requested
+
+    def _nominal(self, ms: int) -> np.ndarray:
+        return create_dl_sig(self.cp_type, ms, 0, self.n_id_1, self.n_id_2,
+                             self.load_factor, rng=self.rng,
+                             n_ports=self.n_ports)
+
+    def stream(self, block: int = 10000) -> Iterator[np.ndarray]:
+        """Endless stream generated 200 ms at a time.  Without the
+        coupled channel each 200 ms restarts the carrier mix at phase 0;
+        through it the mixer phase runs on and ``ClockResampler``
+        carries the fractional sample position across the 200 ms
+        boundaries, so the clock's timing drift accumulates as a live
+        dongle's would."""
+        if not (self.coupled_fc and self.freq_offset):
+            while True:
+                sig = apply_freq_offset(self._nominal(200), self.freq_offset)
+                buf = awgn(sig, self.snr_db, rng=self.rng)
+                for i in range(0, len(buf), block):
+                    yield buf[i: i + block]
+        rs = ClockResampler((self.coupled_fc - self.freq_offset)
+                            / self.coupled_fc)
+        mixed_at = 0
+        pending = np.zeros(0, np.complex128)
+        while True:
+            nominal = self._nominal(200)
+            mixed = nominal * np.exp(
+                1j * 2 * np.pi * self.freq_offset
+                * (mixed_at + np.arange(len(nominal))) / FS_WORK)
+            mixed_at += len(nominal)
+            out = rs.push(mixed)
+            if len(out):
+                pending = np.concatenate(
+                    [pending, awgn(out, self.snr_db, rng=self.rng)])
+            while len(pending) >= block:
+                yield pending[:block]
+                pending = pending[block:]
 
 
 class CaptureSession:

@@ -11,7 +11,9 @@ Behavioral contracts (reference src/lte_lib.cpp):
 
 The encoder, rate matcher and CRC are host numpy (the simulator's
 transmitter and the decoder's tables); the de-ratematcher and the
-tail-biting Viterbi decoder run on tensors with a leading batch axis.
+tail-biting Viterbi decoder run on tensors with a leading batch axis,
+and again on the host for one codeword (``*_host``: the tracker's MIB
+re-decode).
 The decoder runs all 64 start-state hypotheses at once (the IT++
 decode_tailbite contract: best metric among start==end constrained
 paths) as a Python loop over the trellis steps.
@@ -128,6 +130,47 @@ def conv_decode_tailbite(d_llr: torch.Tensor) -> torch.Tensor:
     return torch.stack(bits, dim=1)
 
 
+def conv_decode_tailbite_host(d_llr: np.ndarray) -> np.ndarray:
+    """Host tail-biting Viterbi with conv_decode_tailbite's contract for
+    one codeword, LLRs [3, n] -> bits [n] (int32): native C
+    (native/tracker_math.cpp viterbi_tailbite) when the library loaded,
+    numpy otherwise.  The tracker's MIB re-decode runs it every 40 ms
+    per cell, where per-step tensor dispatch would cost more than the
+    trellis."""
+    from ..io.native import get_lib
+
+    d_llr = np.ascontiguousarray(d_llr, dtype=np.float64)
+    n = d_llr.shape[1]
+    lib = get_lib()
+    if lib is not None:
+        bits = np.empty(n, dtype=np.int32)
+        lib.viterbi_tailbite(d_llr.ctypes.data, n, bits.ctypes.data)
+        return bits
+
+    _next_state, out_bits = _trellis()
+    signs = (1 - 2 * out_bits.astype(np.int64)).astype(np.float64)
+    preds = _predecessors()
+    pm = np.full((64, 64), -1e30)
+    pm[np.arange(64), np.arange(64)] = 0.0
+    choices = np.zeros((n, 64, 64), dtype=np.int64)
+    for k in range(n):
+        gain = signs @ d_llr[:, k] * 0.5                # [64, 2]
+        cand = (pm[:, :, None] + gain[None, :, :]).reshape(64, 128)
+        c2 = cand[:, preds]                             # [start, new, 2]
+        choices[k] = np.argmax(c2, axis=-1)
+        pm = np.max(c2, axis=-1)
+    best_start = int(np.argmax(pm[np.arange(64), np.arange(64)]))
+    pred_state = preds // 2
+    pred_bit = preds % 2
+    bits = np.zeros(n, dtype=np.int32)
+    state = best_start
+    for k in range(n - 1, -1, -1):
+        b = choices[k, best_start, state]
+        bits[k] = pred_bit[state, b]
+        state = pred_state[state, b]
+    return bits
+
+
 # ---------------------------------------------------------------------------
 # Rate matching
 # ---------------------------------------------------------------------------
@@ -191,6 +234,30 @@ def conv_deratematch(e_llr: torch.Tensor, n_c: int) -> torch.Tensor:
         0, flat, torch.ones(n_e, dtype=e_llr.dtype, device=e_llr.device))
     avg = torch.where(counts > 1, sums / torch.clamp(counts, min=1), sums)
     return avg.reshape(n_cw, 3, n_c)
+
+
+@lru_cache(maxsize=None)
+def _ratematch_flat_idx(n_c: int, n_e: int) -> np.ndarray:
+    m = ratematch_map(n_c, n_e)
+    return np.ascontiguousarray(m[:, 0] * n_c + m[:, 1])
+
+
+@lru_cache(maxsize=None)
+def _deratematch_counts(n_c: int, n_e: int) -> np.ndarray:
+    return np.bincount(_ratematch_flat_idx(n_c, n_e),
+                       minlength=3 * n_c).astype(np.float64)
+
+
+def conv_deratematch_host(e_llr: np.ndarray, n_c: int) -> np.ndarray:
+    """Numpy conv_deratematch of one codeword, e_llr [n_e] -> [3, n_c]
+    (the same averaging contract): one bincount against the cached
+    index plan."""
+    e_llr = np.asarray(e_llr, dtype=np.float64)
+    idx = _ratematch_flat_idx(n_c, len(e_llr))
+    counts = _deratematch_counts(n_c, len(e_llr))
+    sums = np.bincount(idx, weights=e_llr, minlength=3 * n_c)
+    avg = np.where(counts > 1, sums / np.maximum(counts, 1.0), sums)
+    return avg.reshape(3, n_c)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ soft demod returns ln(P(bit==0)/P(bit==1)) with per-symbol noise weighting
 
 Constellation tables are generated from the 36.211 nesting formula;
 ``lte_modulate`` is host numpy (the simulator's transmitter),
-``lte_demodulate`` a tensor logsumexp over the constellation.
+``lte_demodulate`` a tensor logsumexp over the constellation, and
+``lte_demodulate_host`` the same log-MAP in numpy (the tracker's MIB
+re-decode).
 """
 
 from __future__ import annotations
@@ -81,3 +83,33 @@ def lte_demodulate(syms: torch.Tensor, np_vec: torch.Tensor,
         m1 = torch.logsumexp(torch.where(bit == 1, metric, neg_inf), dim=-1)
         out.append(m0 - m1)
     return torch.stack(out, dim=-1).reshape(*syms.shape[:-1], -1)
+
+
+def lte_demodulate_host(syms: np.ndarray, np_vec: np.ndarray,
+                        modulation: str = "qpsk") -> np.ndarray:
+    """Numpy lte_demodulate of syms [n] with noise powers np_vec [n] ->
+    [n*bps] (identical log-MAP math)."""
+    syms = np.asarray(syms)
+    np_vec = np.asarray(np_vec, dtype=np.float64)
+    bps = _BPS[modulation]
+    if modulation == "qpsk":
+        # exact log-MAP closed form: the log(2cosh) term of the other
+        # bit axis cancels in m0-m1, leaving llr = 2*sqrt(2)*I_or_Q/np
+        s = (2.0 * np.sqrt(2.0)) / np_vec
+        out = np.empty((syms.shape[0], 2))
+        out[:, 0] = syms.real * s
+        out[:, 1] = syms.imag * s
+        return out.reshape(-1)
+    table = mod_map(modulation)
+    d = syms[:, None] - table[None, :]
+    metric = -(d.real ** 2 + d.imag ** 2) / np_vec[:, None]
+    idx = np.arange(table.shape[0])
+    out = np.empty((syms.shape[0], bps))
+    for b in range(bps):
+        bit = (idx >> (bps - 1 - b)) & 1
+        m0 = np.logaddexp.reduce(
+            np.where(bit == 0, metric, -np.inf), axis=1)
+        m1 = np.logaddexp.reduce(
+            np.where(bit == 1, metric, -np.inf), axis=1)
+        out[:, b] = m0 - m1
+    return out.reshape(-1)

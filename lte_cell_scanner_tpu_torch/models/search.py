@@ -59,6 +59,10 @@ class SearchConfig:
     compat: str = "production"   # or "golden" (see models/sss_detect.py)
     interp: str = "hex"          # or "2stage", "freq_time" (chan_est.py)
     decode: bool = True          # run the tfg/tfoec/MIB back half
+    # cell IDs to drop right after SSS detection, before the fine FOE
+    # and decode -- the reference searcher thread's already-tracked
+    # check sits exactly there (searcher_thread.cpp:157-177)
+    skip_ids: frozenset = frozenset()
     # SSS/FOE and decode of all peaks in batched passes (False = the
     # reference's peak-at-a-time order; same math)
     batch_peaks: bool = True
@@ -92,8 +96,10 @@ def refine_peaks(peaks: List[Cell], cap_t: torch.Tensor,
         with stage("sss_foe_fused", dev, timings):
             cells = sss_foe_batch_fused(peaks, cap_t[None], [0] * len(peaks),
                                         cfg.thresh2_n_sigma, fs_programmed,
-                                        compat=cfg.compat)
-        cells = [c for c in cells if c.n_id_1 >= 0]
+                                        compat=cfg.compat,
+                                        skip_ids=cfg.skip_ids)
+        cells = [c for c in cells
+                 if c.n_id_1 >= 0 and c.n_id_cell() not in cfg.skip_ids]
         if not cfg.decode or not cells:
             return cells
         if cfg.interp == "hex":
@@ -112,7 +118,7 @@ def refine_peaks(peaks: List[Cell], cap_t: torch.Tensor,
             cell = sss_detect(cell, cap_t, cfg.thresh2_n_sigma, fc_requested,
                               fc_programmed, fs_programmed,
                               compat=cfg.compat)
-        if cell.n_id_1 < 0:
+        if cell.n_id_1 < 0 or cell.n_id_cell() in cfg.skip_ids:
             continue
         with stage("pss_sss_foe", dev, timings):
             cell = pss_sss_foe(cell, cap_t, fc_requested, fc_programmed,

@@ -313,8 +313,9 @@ def _refine_from_peaks(all_peaks: List[Cell], carrier_of: List[int],
     with stage("sss_foe_fused", dev, timings):
         cells = sss_foe_batch_fused(all_peaks, cap_t, carrier_of,
                                     cfg.thresh2_n_sigma, fs_programmed,
-                                    compat=cfg.compat)
-    kept = [(c, ci) for c, ci in zip(cells, carrier_of) if c.n_id_1 >= 0]
+                                    compat=cfg.compat, skip_ids=cfg.skip_ids)
+    kept = [(c, ci) for c, ci in zip(cells, carrier_of)
+            if c.n_id_1 >= 0 and c.n_id_cell() not in cfg.skip_ids]
     if cfg.decode and kept and cfg.interp == "hex":
         with stage("decode_fused", dev, timings):
             decoded = decode_back_half_batch_multi(

@@ -120,6 +120,45 @@ def apply_clock_offset_positions(sig: np.ndarray, pos: np.ndarray,
     return fine[i0] * (1.0 - frac) + fine[i0 + 1] * frac
 
 
+class ClockResampler:
+    """Streaming coupled-clock resampler with cross-block continuity.
+
+    Feed nominal-rate samples with push(); get back the stream as a
+    sampler running at fs*k_factor would have produced it, with the
+    fractional position carried across pushes (no per-block phase
+    reset).  Used by io/capture.py::SimSource.stream for a coupled
+    stream.
+    """
+
+    def __init__(self, k_factor: float, up: int = 32, guard: int = 256):
+        self.k = k_factor
+        self.up = up
+        self.guard = guard
+        self.buf = np.zeros(0, dtype=np.complex128)
+        self.base = 0          # nominal index of buf[0]
+        self.next_out = 0      # next output sample index
+
+    def push(self, nominal: np.ndarray) -> np.ndarray:
+        self.buf = np.concatenate([self.buf, np.asarray(nominal)])
+        # emit every output whose source position stays clear of the
+        # window tail (interpft ringing guard)
+        hi_pos = self.base + len(self.buf) - self.guard - 2
+        n_last = int(np.floor(hi_pos * self.k))
+        if n_last < self.next_out:
+            return np.zeros(0, dtype=np.complex128)
+        ns = np.arange(self.next_out, n_last + 1)
+        rel = ns / self.k - self.base
+        out = apply_clock_offset_positions(self.buf, rel, self.up)
+        self.next_out = n_last + 1
+        # trim consumed nominal samples, keeping a leading guard
+        keep_from = int(np.floor(self.next_out / self.k)) - self.guard
+        drop = max(0, keep_from - self.base)
+        if drop:
+            self.buf = self.buf[drop:]
+            self.base += drop
+        return out
+
+
 def _interpft(x: np.ndarray, n_y: int) -> np.ndarray:
     """FFT-based resampling of x to length n_y, matlab interpft
     semantics (reference dsp.cpp:52-91): zero-pad the spectrum in the

@@ -1,0 +1,1007 @@
+"""Per-cell tracking: demod, CE filtering, FOE/TOE feedback, MIB re-decode.
+
+Behavioral contract: the reference tracker thread
+(reference src/tracker_thread.cpp): get_fd (:91-174), filter_ce
+(:176-202), do_foe (:204-243), do_toe_v2 (:245-279), do_ac_fd (:318-340),
+do_ac_td (:343-370), interp72/interp2d (:372-477), pbch_extract_rt /
+do_mib_decode (:494-749), do_pss_sss_sigpower_ce (:754-820), and the main
+per-OFDM-symbol loop (:823-1068).
+
+Re-design: one TrackedCellProcessor object per cell, driven by the event
+loop with struct-of-arrays PDU CHUNKS (tracker/producer.py PduChunk); the
+per-cell thread + FIFO/condvar machinery becomes array fifos drained once
+per tick.  The per-RS-window numerics and the sequential FOE/TOE feedback
+chain run in the native C++ runtime (native/tracker_math.cpp
+rs_window_update_batch2 -- the reference's tracker math is C++ too), with
+a numpy float64 fallback that mirrors the reference's double math
+loop-for-loop (pinned by parity tests).  The heavy demod front end
+(mixer + DFT) is batched across all cells (tracker/batched.py), and in
+device-loop mode the CRS extraction with it (tracker/device_loop.py,
+process_device).  The control loops stay host float64 on every device."""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, List, Optional, Tuple
+
+import numpy as np
+
+from ..cell import CpType
+from ..constants import CELL_DROP_THRESHOLD, FS_LTE
+from ..models.coding import crc_parity
+from ..models.pn import lte_pn
+from ..models.pss import PSS_FD
+from ..models.rs import RsDl
+from ..models.sss import SSS_FD
+from .batched import _CN
+from .producer import PduChunk
+from .state import GlobalState, TrackedCell
+
+
+def _wrap(x, lo, hi):
+    return (x - lo) % (hi - lo) + lo
+
+
+def _sigpower(v):
+    # mean |v|^2 as one BLAS dot (identical rounding class to the
+    # pairwise mean for these 12/62-element vectors; hot per-symbol path)
+    return float(np.vdot(v, v).real) / v.size
+
+
+class _RsPdu:
+    """Per-RS-symbol view used by the numpy fallback path and tests."""
+
+    __slots__ = ("shift", "slot_num", "sym_num", "ce", "fo", "ft")
+
+    def __init__(self, shift, slot_num, sym_num, ce, fo, ft):
+        self.shift = shift
+        self.slot_num = slot_num
+        self.sym_num = sym_num
+        self.ce = ce
+        self.fo = fo
+        self.ft = ft
+
+
+class _FiltPdu:
+    __slots__ = ("shift", "slot_num", "sym_num", "tp", "sp", "sp_raw", "np",
+                 "ce_filt", "ce72")
+
+    def __init__(self, **kw):
+        self.ce72 = None          # lazily cached _interp72 of ce_filt
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class _SoaFifo:
+    """FIFO of per-symbol rows stored as struct-of-arrays chunks.
+
+    Each append is a tuple of k same-length arrays (axis 0 = symbols);
+    pops return the first n symbols re-merged.  Replaces per-symbol
+    Python objects on the streaming hot path (reference ce_interp_fifo
+    and data fifos, tracker_thread.cpp)."""
+
+    __slots__ = ("chunks", "n")
+
+    def __init__(self):
+        self.chunks: Deque[Tuple[np.ndarray, ...]] = deque()
+        self.n = 0
+
+    def append(self, *arrays) -> None:
+        self.chunks.append(arrays)
+        self.n += arrays[0].shape[0]
+
+    def pop_n(self, k: int) -> Tuple[np.ndarray, ...]:
+        """Pop the first k symbols as one tuple of arrays."""
+        parts = []
+        need = k
+        while need > 0:
+            chunk = self.chunks[0]
+            m = chunk[0].shape[0]
+            if m <= need:
+                parts.append(self.chunks.popleft())
+                need -= m
+            else:
+                parts.append(tuple(a[:need] for a in chunk))
+                self.chunks[0] = tuple(a[need:] for a in chunk)
+                need = 0
+        self.n -= k
+        if len(parts) == 1:
+            return parts[0]
+        nf = len(parts[0])
+        return tuple(np.concatenate([p[i] for p in parts])
+                     for i in range(nf))
+
+
+class TrackedCellProcessor:
+    """Processes one tracked cell's symbol stream."""
+
+    def __init__(self, cell: TrackedCell, state: GlobalState):
+        self.cell = cell
+        self.state = state
+        self.rs_dl = RsDl(cell.n_id_cell, 6, cell.cp_type)
+        self._rs_conj = np.conj(self.rs_dl.rs_table)
+        m_bit = 1920 if cell.cp_type is CpType.NORMAL else 1728
+        self.scr = lte_pn(cell.n_id_cell, m_bit)
+        self.slot_num = 0
+        self.sym_num = 0
+        self.bulk_phase_offset = 0.0
+        n_ports = cell.n_ports
+        # (slots, syms, fd-symbols) awaiting interpolated CEs
+        self.data_fifo = _SoaFifo()
+        # per-port pending raw-CE rows: (ce[m,12], shift, slot, sym, fo, ft)
+        self.rs_pending: List[Optional[Tuple[np.ndarray, ...]]] = \
+            [None] * n_ports
+        # per-port carry row between interpolation pairs:
+        # (ce72[72], tp, sp, sp_raw, np, slot, sym)
+        self.filt_carry: List[Optional[tuple]] = [None] * n_ports
+        # fused-native carry state: [ce72, {tp,sp,spr,np}, {slot,sym}, valid]
+        self._tick_carry = [[np.zeros(72, np.complex128), np.zeros(4),
+                             np.zeros(2, np.int64), False]
+                            for _ in range(n_ports)]
+        self.ce_interp_fifo: List[_SoaFifo] = [_SoaFifo()
+                                               for _ in range(n_ports)]
+        self.ce_interp_init = [False] * n_ports
+        self._alpha_cache = {}
+        self.ce_history = [(np.zeros((72, 12), np.complex128),
+                            np.zeros(1, np.int64))
+                           for _ in range(n_ports)]
+        self.mib_fifo: Deque = deque()
+        self.mib_fifo_synchronized = False
+        self._pbch_keep = None
+        # device-loop mode (tracker/device_loop.py): special-symbol rows
+        # keyed by ABSOLUTE symbol index, plus the ingest/emit counters
+        # that replace the dense data_fifo alignment
+        self._spec_map = {}
+        self._sym_base = 0
+        self._emitted_base = 0
+        self.sss_sym: Optional[np.ndarray] = None
+        # cached sync-channel tables: (sss_fd slot0 f64, slot10 f64,
+        # conj pss_fd)
+        self._sync_tabs: Optional[tuple] = None
+        # native per-RS-window numerics (native/tracker_math.cpp),
+        # numpy fallback when the library is unavailable
+        from ..io.native import get_lib
+        self._native = get_lib()
+        if self._native is not None:
+            # fused-cell-tick state (native cell_tick): pending CRS rows,
+            # pair carry, and the ac_td history stacked per port.  The
+            # ce_history entries alias the stacked buffers so the
+            # two-step paths (parity tests) share the same state.
+            self._shift_i64 = np.ascontiguousarray(
+                self.rs_dl.shift_table, np.int64)
+            self._rs_conj = np.ascontiguousarray(self._rs_conj,
+                                                 np.complex128)
+            self._alloc_pending(512)
+            self._carry_ce72 = np.zeros((n_ports, 72), np.complex128)
+            self._carry_scal = np.zeros((n_ports, 4))
+            self._carry_label = np.zeros((n_ports, 2), np.int64)
+            self._carry_valid = np.zeros(n_ports, np.int64)
+            self._hist = np.zeros((n_ports, 72, 12), np.complex128)
+            self._hist_pos = np.zeros(n_ports, np.int64)
+            self.ce_history = [(self._hist[p], self._hist_pos[p:p + 1])
+                               for p in range(n_ports)]
+
+    def _alloc_pending(self, cap: int) -> None:
+        n_ports = self.cell.n_ports
+        self._pend_cap = cap
+        self._pend_ce = np.zeros((n_ports, cap, 12), np.complex128)
+        self._pend_shift = np.zeros((n_ports, cap), np.int64)
+        self._pend_slot = np.zeros((n_ports, cap), np.int64)
+        self._pend_sym = np.zeros((n_ports, cap), np.int64)
+        self._pend_fo = np.zeros((n_ports, cap))
+        self._pend_ft = np.zeros((n_ports, cap))
+        self._pend_cnt = np.zeros(n_ports, np.int64)
+
+    def _grow_pending(self, cap: int) -> None:
+        old = (self._pend_ce, self._pend_shift, self._pend_slot,
+               self._pend_sym, self._pend_fo, self._pend_ft)
+        cnt = self._pend_cnt
+        self._alloc_pending(cap)
+        new = (self._pend_ce, self._pend_shift, self._pend_slot,
+               self._pend_sym, self._pend_fo, self._pend_ft)
+        for p in range(self.cell.n_ports):
+            k = int(cnt[p])
+            for o, n in zip(old, new):
+                n[p, :k] = o[p, :k]
+        self._pend_cnt = cnt
+
+    # ------------------------------------------------------------------
+    def _filter_ce(self, prev: _RsPdu, curr: _RsPdu, nxt: _RsPdu):
+        """3-symbol hex filtering (reference filter_ce), vectorized:
+        the clamped neighbor-window sums are 'same'-mode convolutions
+        (out-of-range taps contribute 0, counts tracked separately)."""
+        one3 = np.ones(3)
+        cur_sum = np.convolve(curr.ce, one3, "same")       # [t-1, t+1] clamped
+        n_cur = np.convolve(np.ones(12), one3, "same")
+        pn = prev.ce + nxt.ce
+        if prev.shift < curr.shift:
+            # window [t, t+1]
+            side = pn + np.concatenate([pn[1:], [0.0]])
+            n_side = np.concatenate([np.full(11, 2.0), [1.0]])
+        else:
+            # window [t-1, t]
+            side = pn + np.concatenate([[0.0], pn[:-1]])
+            n_side = np.concatenate([[1.0], np.full(11, 2.0)])
+        return (cur_sum + side) / (n_cur + 2 * n_side)
+
+    def _do_foe(self, prev: _RsPdu, nxt: _RsPdu, np_curr: float,
+                ce_filt: np.ndarray) -> None:
+        st = self.state
+        foe = np.conj(prev.ce) * nxt.ce
+        cf2 = np.abs(ce_filt) ** 2
+        foe_np = np_curr * np_curr + 2 * np_curr * cf2
+        weight = cf2 / foe_np
+        foe_comb = np.sum(foe * weight)
+        foe_comb_np = np.sum(foe_np * weight * weight)
+        scale = 1.0 / np.sum(cf2 * weight)
+        foe_comb *= scale
+        foe_comb_np *= scale * scale
+
+        fo = prev.fo
+        k_factor = (st.fc_requested - fo) / st.fc_programmed
+        dt = 0.0005 + _wrap(nxt.ft - prev.ft, -9600.0, 9600.0) \
+            / (st.fs_programmed * k_factor)
+        residual_f = np.angle(foe_comb) / (2 * np.pi) / dt
+        residual_f_np = max(foe_comb_np / 2, 0.001)
+        st.blend_frequency_offset(fo + residual_f, residual_f_np)
+
+    def _do_toe_v2(self, prev: _RsPdu, curr: _RsPdu, sp: float,
+                   np_curr: float) -> None:
+        if prev.shift < curr.shift:
+            a, b = prev.ce, curr.ce
+        else:
+            a, b = curr.ce, prev.ce
+        toe1 = np.sum(np.conj(a) * b) / 12
+        toe2 = (np.sum(np.conj(b[0:5]) * a[1:6])
+                + np.sum(np.conj(b[6:11]) * a[7:12])) / 10
+        toe1 /= np.sqrt(sp)
+        toe2 /= np.sqrt(sp)
+        delay = -(np.angle(toe1) + np.angle(toe2)) / 2 / 3 / (2 * np.pi / 128)
+        delay_np = max(np_curr / sp / 2 / 12, 0.001)
+        diff = _wrap((curr.ft + delay) - self.cell.frame_timing,
+                     -9600.0, 9600.0)
+        diff = diff * (1 / delay_np) / (1 / 0.0001 + 1 / delay_np)
+        self.cell.update_frame_timing(self.cell.frame_timing + diff)
+
+    def _do_ac_fd(self, curr: _RsPdu, sp: float, np_curr: float) -> None:
+        ce = curr.ce
+        # ac[d] = mean(conj(ce[:12-d]) * ce[d:]) via one correlation
+        # (np.correlate conjugates its second argument)
+        full = np.correlate(ce, ce, "full")        # full[11+d] = sum_t ce[t+d] conj(ce[t])
+        counts = np.arange(12.0, 0.0, -1.0)
+        ac = full[11:] / counts / sp
+        ac_np = (np_curr ** 2 / sp ** 2 + 2 * np_curr / sp) / counts
+        w_old = 1 / 0.00001
+        self.cell.ac_fd = (self.cell.ac_fd * w_old + ac / ac_np) \
+            / (w_old + 1.0 / ac_np)
+
+    def _do_ac_td(self, curr: _RsPdu, sp: float, hist) -> None:
+        """72-symbol time autocorrelation over a preallocated ring
+        (reference do_ac_td, tracker_thread.cpp:343-370)."""
+        buf, pos = hist
+        buf[pos[0] % 72] = curr.ce
+        pos[0] += 1
+        if pos[0] >= 72:
+            # chronological view: oldest..newest, then reverse for lags
+            order = (pos[0] + np.arange(72)) % 72
+            h = buf[order]                        # [72, 12] oldest-first
+            last = h[71]
+            xc = (h[::-1] @ np.conj(last)) / 12 / sp
+            w_old = 1 / 0.00001
+            self.cell.ac_td = (self.cell.ac_td * w_old + xc) / (w_old + 1)
+
+    # ------------------------------------------------------------------
+    def _rs_windows(self, port: int, ce, shift, slot, sym, fo, ft):
+        """All of this tick's complete RS 3-windows for one port: CE
+        filtering, powers, FOE/TOE statistics, ac_fd/ac_td blends, the
+        12->72 interpolation AND the sequential FOE / frame-timing
+        feedback applications -- one native call
+        (rs_window_update_batch2) or the loop-exact numpy fallback.
+
+        Inputs are the port's pending raw-CE rows [m]; windows are the
+        m-2 consecutive triples.  Returns (ce72[m-2,72], tp, sp, sp_raw,
+        np) for the curr rows."""
+        c = self.cell
+        st = self.state
+        m = ce.shape[0]
+        nwin = m - 2
+        buf, pos = self.ce_history[port]
+        if self._native is not None:
+            ce = np.ascontiguousarray(ce, dtype=np.complex128)
+            shift = np.ascontiguousarray(shift, dtype=np.int64)
+            left = (shift[0: m - 2] < shift[1: m - 1]).astype(np.int64)
+            curr_shift = np.ascontiguousarray(shift[1: m - 1])
+            fo = np.ascontiguousarray(fo)
+            ft = np.ascontiguousarray(ft)
+            ce_filt = np.empty((nwin, 12), np.complex128)
+            ce72 = np.empty((nwin, 72), np.complex128)
+            scalars = np.empty((nwin, 10), np.float64)
+            regs = np.array([st.frequency_offset, c.frame_timing])
+            self._native.rs_window_update_batch2(
+                nwin, ce.ctypes.data, ce[1:].ctypes.data,
+                ce[2:].ctypes.data, left.ctypes.data,
+                curr_shift.ctypes.data, fo.ctypes.data, ft.ctypes.data,
+                ft[2:].ctypes.data, ft[1:].ctypes.data,
+                st.fc_requested, st.fc_programmed, st.fs_programmed,
+                ce_filt.ctypes.data, ce72.ctypes.data, scalars.ctypes.data,
+                c.ac_fd.ctypes.data, c.ac_td.ctypes.data,
+                buf.ctypes.data, pos.ctypes.data, regs.ctypes.data)
+            st.frequency_offset = float(regs[0])
+            c.frame_timing = float(regs[1])
+            return (ce72, scalars[:, 1].copy(), scalars[:, 3].copy(),
+                    scalars[:, 2].copy(), scalars[:, 0].copy())
+
+        ce72 = np.empty((nwin, 72), np.complex128)
+        tp = np.empty(nwin)
+        sp = np.empty(nwin)
+        spr = np.empty(nwin)
+        npv = np.empty(nwin)
+        for i in range(nwin):
+            prev = _RsPdu(int(shift[i]), int(slot[i]), int(sym[i]),
+                          ce[i], float(fo[i]), float(ft[i]))
+            curr = _RsPdu(int(shift[i + 1]), int(slot[i + 1]),
+                          int(sym[i + 1]), ce[i + 1], float(fo[i + 1]),
+                          float(ft[i + 1]))
+            nxt = _RsPdu(int(shift[i + 2]), int(slot[i + 2]),
+                         int(sym[i + 2]), ce[i + 2], float(fo[i + 2]),
+                         float(ft[i + 2]))
+            ce_filt = self._filter_ce(prev, curr, nxt)
+            np_curr = _sigpower(curr.ce - ce_filt) * 7 / 6
+            tp_curr = _sigpower(ce_filt)
+            sp_raw = tp_curr - np_curr / 7
+            sp_curr = max(1e-5, sp_raw)
+            self._do_foe(prev, nxt, np_curr, ce_filt)
+            self._do_toe_v2(prev, curr, sp_curr, np_curr)
+            self._do_ac_fd(curr, sp_curr, np_curr)
+            self._do_ac_td(curr, sp_curr, self.ce_history[port])
+            ce72[i] = self._interp72(_FiltPdu(
+                shift=int(shift[i + 1]), slot_num=int(slot[i + 1]),
+                sym_num=int(sym[i + 1]), tp=tp_curr, sp=sp_curr,
+                sp_raw=sp_raw, np=np_curr, ce_filt=ce_filt))
+            tp[i], sp[i], spr[i], npv[i] = tp_curr, sp_curr, sp_raw, np_curr
+        return ce72, tp, sp, spr, npv
+
+    # ------------------------------------------------------------------
+    def _interp72(self, pdu: _FiltPdu) -> np.ndarray:
+        """Linear 12 -> 72 interpolation with edge extrapolation
+        (reference interp72, tracker_thread.cpp:372-393), vectorized:
+        segment k(t) advances when t passes the right knot shift+6(k+1)."""
+        if self._native is not None:
+            y = np.ascontiguousarray(pdu.ce_filt, np.complex128)
+            out = np.empty(72, np.complex128)
+            self._native.interp72(y.ctypes.data, int(pdu.shift),
+                                  out.ctypes.data)
+            return out
+        t = np.arange(72)
+        y = pdu.ce_filt
+        k = np.clip(np.ceil((t - pdu.shift) / 6.0).astype(np.int64) - 1,
+                    0, 10)
+        l_x = pdu.shift + 6 * k
+        return (y[k + 1] - y[k]) / 6.0 * (t - l_x) + y[k]
+
+    def _alphas(self, port: int, prev_sym: int, dist: int) -> np.ndarray:
+        """Interpolation weights for the intermediate symbols between two
+        consecutive RS symbols (reference interp2d's time axis,
+        tracker_thread.cpp:395-477).  The (slot, sym) step walk depends
+        only on (port>2, prev_sym, symbol distance), so the weight
+        vector is computed once per pattern and cached."""
+        n_symb = self.cell.n_symb_dl()
+        key = (port > 2, prev_sym, dist)
+        al = self._alpha_cache.get(key)
+        if al is not None:
+            return al
+        ext = self.cell.cp_type is CpType.EXTENDED
+        if port > 2:
+            time_diff = 0.0005
+        elif ext:
+            time_diff = 3 * (128 + 32) * (16 / FS_LTE)
+        elif prev_sym == 0:
+            time_diff = 4 * (128 + 9) * (16 / FS_LTE)
+        else:
+            time_diff = (2 * (128 + 9) + (128 + 10)) * (16 / FS_LTE)
+        offsets = []
+        time_offset = 0.0
+        sym_num = prev_sym
+        for _ in range(max(dist, 0)):
+            offsets.append(time_offset)
+            if ext:
+                time_offset += (128 + 32) * (16 / FS_LTE)
+            else:
+                time_offset += ((128 + 10) if sym_num == 6 else (128 + 9)) \
+                    * (16 / FS_LTE)
+            sym_num += 1
+            if sym_num == n_symb:
+                sym_num = 0
+        al = np.asarray(offsets) / time_diff
+        self._alpha_cache[key] = al
+        return al
+
+    def _interp_pairs(self, port: int, ce72, tp, sp, spr, npv, slot, sym
+                      ) -> None:
+        """Time-interpolate this tick's new filtered-CE rows (plus the
+        carried last row of the previous tick) into one ce_interp chunk
+        (same math as the reference's per-pair interp2d, batched)."""
+        carry = self.filt_carry[port]
+        if carry is not None:
+            ce72 = np.concatenate([carry[0][None], ce72])
+            tp = np.concatenate([[carry[1]], tp])
+            sp = np.concatenate([[carry[2]], sp])
+            spr = np.concatenate([[carry[3]], spr])
+            npv = np.concatenate([[carry[4]], npv])
+            slot = np.concatenate([[carry[5]], slot])
+            sym = np.concatenate([[carry[6]], sym])
+        n = len(tp)
+        self.filt_carry[port] = (ce72[-1], float(tp[-1]), float(sp[-1]),
+                                 float(spr[-1]), float(npv[-1]),
+                                 int(slot[-1]), int(sym[-1]))
+        if n < 2:
+            return
+        n_symb = self.cell.n_symb_dl()
+        slot = np.ascontiguousarray(slot, np.int64)
+        sym = np.ascontiguousarray(sym, np.int64)
+        dists = ((slot[1:] - slot[:-1]) % 20) * n_symb + (sym[1:] - sym[:-1])
+        if self._native is not None:
+            total = int(np.maximum(dists, 0).sum())
+            if total == 0:
+                return
+            ce72 = np.ascontiguousarray(ce72, np.complex128)
+            tp = np.ascontiguousarray(tp, np.float64)
+            sp = np.ascontiguousarray(sp, np.float64)
+            spr = np.ascontiguousarray(spr, np.float64)
+            npv = np.ascontiguousarray(npv, np.float64)
+            ce_rows = np.empty((total, 72), np.complex128)
+            tp_rows = np.empty(total)
+            sp_rows = np.empty(total)
+            spr_rows = np.empty(total)
+            np_rows = np.empty(total)
+            self._native.interp_pairs(
+                n, ce72.ctypes.data, tp.ctypes.data, sp.ctypes.data,
+                spr.ctypes.data, npv.ctypes.data, slot.ctypes.data,
+                sym.ctypes.data, n_symb, int(port > 2),
+                int(self.cell.cp_type is CpType.EXTENDED), FS_LTE,
+                ce_rows.ctypes.data, tp_rows.ctypes.data,
+                sp_rows.ctypes.data, spr_rows.ctypes.data,
+                np_rows.ctypes.data)
+        else:
+            alphas = [self._alphas(port, int(sym[i]), int(dists[i]))
+                      for i in range(n - 1)]
+            pair_lens = [len(a) for a in alphas]
+            alpha = np.concatenate(alphas) if alphas else np.empty(0)
+            if len(alpha) == 0:
+                return
+            pidx = np.repeat(np.arange(n - 1), pair_lens)
+
+            prev_ce = ce72[pidx]
+            ce_rows = prev_ce + (ce72[1:][pidx] - prev_ce) * alpha[:, None]
+            tp_rows = tp[pidx] + (tp[1:] - tp[:-1])[pidx] * alpha
+            sp_rows = sp[pidx] + (sp[1:] - sp[:-1])[pidx] * alpha
+            spr_rows = spr[pidx] + (spr[1:] - spr[:-1])[pidx] * alpha
+            np_rows = npv[pidx] + (npv[1:] - npv[:-1])[pidx] * alpha
+
+        self._emit_rows(port, ce_rows, tp_rows, sp_rows, spr_rows, np_rows,
+                        int(slot[0]), int(sym[0]))
+
+    def _emit_rows(self, port, ce_rows, tp_rows, sp_rows, spr_rows, np_rows,
+                   slot0, sym0) -> None:
+        """Append interpolated rows to the port fifo, bootstrapping the
+        first emission back to slot 0 sym 0 (the first emitted symbol IS
+        the first pair's prev label)."""
+        if not self.ce_interp_init[port]:
+            self.ce_interp_init[port] = True
+            boot = slot0 * self.cell.n_symb_dl() + sym0
+            if boot:
+                ce_rows = np.concatenate(
+                    [np.broadcast_to(ce_rows[0], (boot, 72)), ce_rows])
+                tp_rows = np.concatenate([np.full(boot, tp_rows[0]), tp_rows])
+                sp_rows = np.concatenate([np.full(boot, sp_rows[0]), sp_rows])
+                spr_rows = np.concatenate(
+                    [np.full(boot, spr_rows[0]), spr_rows])
+                np_rows = np.concatenate([np.full(boot, np_rows[0]), np_rows])
+
+        self.ce_interp_fifo[port].append(ce_rows, tp_rows, sp_rows,
+                                         spr_rows, np_rows)
+
+    def _port_tick(self, port: int, ce, shift, slot, sym, fo, ft) -> None:
+        """One fused native call for the port's whole tick: all complete
+        RS 3-windows (stats + sequential FOE/frame-timing feedback +
+        12->72 interpolation) and the pair time-interpolation emission,
+        carrying the last row across the tick boundary in C state
+        (native port_tick; semantics pinned against the two-step
+        _rs_windows + _interp_pairs fallback)."""
+        c = self.cell
+        st = self.state
+        m = ce.shape[0]
+        n_symb = c.n_symb_dl()
+        ce = np.ascontiguousarray(ce, np.complex128)
+        shift = np.ascontiguousarray(shift, np.int64)
+        slot = np.ascontiguousarray(slot, np.int64)
+        sym = np.ascontiguousarray(sym, np.int64)
+        fo = np.ascontiguousarray(fo, np.float64)
+        ft = np.ascontiguousarray(ft, np.float64)
+        carry = self._tick_carry[port]
+        c72, cscal, clabel = carry[0], carry[1], carry[2]
+        slot_w = slot[1: m - 1]
+        sym_w = sym[1: m - 1]
+        if carry[3]:
+            seq_slot = np.concatenate([clabel[:1], slot_w])
+            seq_sym = np.concatenate([clabel[1:], sym_w])
+        else:
+            seq_slot, seq_sym = slot_w, sym_w
+        dists = ((seq_slot[1:] - seq_slot[:-1]) % 20) * n_symb \
+            + (seq_sym[1:] - seq_sym[:-1])
+        total = int(np.maximum(dists, 0).sum()) if dists.size else 0
+        buf, pos = self.ce_history[port]
+        regs = np.array([st.frequency_offset, c.frame_timing])
+        cap = max(total, 1)
+        ce_rows = np.empty((cap, 72), np.complex128)
+        tp_rows = np.empty(cap)
+        sp_rows = np.empty(cap)
+        spr_rows = np.empty(cap)
+        np_rows = np.empty(cap)
+        n_emit = self._native.port_tick(
+            m, ce.ctypes.data, shift.ctypes.data, slot.ctypes.data,
+            sym.ctypes.data, fo.ctypes.data, ft.ctypes.data, int(carry[3]),
+            c72.ctypes.data, cscal.ctypes.data, clabel.ctypes.data,
+            n_symb, int(port > 2),
+            int(c.cp_type is CpType.EXTENDED), FS_LTE,
+            st.fc_requested, st.fc_programmed, st.fs_programmed,
+            c.ac_fd.ctypes.data, c.ac_td.ctypes.data,
+            buf.ctypes.data, pos.ctypes.data, regs.ctypes.data,
+            ce_rows.ctypes.data, tp_rows.ctypes.data, sp_rows.ctypes.data,
+            spr_rows.ctypes.data, np_rows.ctypes.data)
+        carry[3] = True
+        st.frequency_offset = float(regs[0])
+        c.frame_timing = float(regs[1])
+        if n_emit == 0:
+            return
+        if n_emit != cap:
+            ce_rows, tp_rows, sp_rows, spr_rows, np_rows = (
+                a[:n_emit] for a in
+                (ce_rows, tp_rows, sp_rows, spr_rows, np_rows))
+        self._emit_rows(port, ce_rows, tp_rows, sp_rows, spr_rows, np_rows,
+                        int(seq_slot[0]), int(seq_sym[0]))
+
+    def _cell_tick(self, S, slots_a, syms_a, fo, ft) -> None:
+        """One fused native call for the whole cell tick: per-port CRS
+        extraction from the tick's fd symbols, pending-row management,
+        window statistics + sequential feedback, and the pair
+        time-interpolation emission (native cell_tick; semantics pinned
+        against the per-port two-step fallback)."""
+        c = self.cell
+        st = self.state
+        n_ports = c.n_ports
+        n_new = S.shape[0]
+        n_symb = c.n_symb_dl()
+        if int(self._pend_cnt.max()) + n_new > self._pend_cap:
+            cap = self._pend_cap
+            while int(self._pend_cnt.max()) + n_new > cap:
+                cap *= 2
+            self._grow_pending(cap)
+        cap_out = n_new + 4 * n_symb + 8
+        out_ce = np.empty((n_ports, cap_out, 72), np.complex128)
+        out_scal = np.empty((n_ports, cap_out, 4))
+        out_cnt = np.empty(n_ports, np.int64)
+        out_label0 = np.empty((n_ports, 2), np.int64)
+        regs = np.array([st.frequency_offset, c.frame_timing])
+        S = np.ascontiguousarray(S, np.complex128)
+        slots_a = np.ascontiguousarray(slots_a, np.int64)
+        syms_a = np.ascontiguousarray(syms_a, np.int64)
+        fo = np.ascontiguousarray(fo, np.float64)
+        ft = np.ascontiguousarray(ft, np.float64)
+        r = self._native.cell_tick(
+            n_new, S.ctypes.data, slots_a.ctypes.data, syms_a.ctypes.data,
+            fo.ctypes.data, ft.ctypes.data, self._shift_i64.ctypes.data,
+            self._rs_conj.ctypes.data, n_ports, n_symb,
+            int(c.cp_type is CpType.EXTENDED), FS_LTE, st.fc_requested,
+            st.fc_programmed, st.fs_programmed, self._pend_cap,
+            self._pend_ce.ctypes.data, self._pend_shift.ctypes.data,
+            self._pend_slot.ctypes.data, self._pend_sym.ctypes.data,
+            self._pend_fo.ctypes.data, self._pend_ft.ctypes.data,
+            self._pend_cnt.ctypes.data, self._carry_ce72.ctypes.data,
+            self._carry_scal.ctypes.data, self._carry_label.ctypes.data,
+            self._carry_valid.ctypes.data, c.ac_fd.ctypes.data,
+            c.ac_td.ctypes.data, self._hist.ctypes.data,
+            self._hist_pos.ctypes.data, regs.ctypes.data, cap_out,
+            out_ce.ctypes.data, out_scal.ctypes.data, out_cnt.ctypes.data,
+            out_label0.ctypes.data)
+        if r < 0:
+            raise RuntimeError("native cell_tick capacity exceeded")
+        st.frequency_offset = float(regs[0])
+        c.frame_timing = float(regs[1])
+        for p in range(n_ports):
+            w = int(out_cnt[p])
+            if w == 0:
+                continue
+            self._emit_rows(p, out_ce[p, :w], out_scal[p, :w, 0],
+                            out_scal[p, :w, 1], out_scal[p, :w, 2],
+                            out_scal[p, :w, 3], int(out_label0[p, 0]),
+                            int(out_label0[p, 1]))
+
+    # ------------------------------------------------------------------
+    def _do_pss_sss_sigpower_ce(self, syms, slot_num, sym_num) -> None:
+        c = self.cell
+        n_symb = c.n_symb_dl()
+        if slot_num not in (0, 10) or sym_num not in (n_symb - 2, n_symb - 1):
+            return
+        if sym_num == n_symb - 2:
+            self.sss_sym = syms
+            return
+        if self.sss_sym is None:
+            return
+        sss_sym = self.sss_sym
+        pss_sym = syms
+        tabs = self._sync_tabs
+        if tabs is None:
+            tabs = self._sync_tabs = (
+                np.ascontiguousarray(SSS_FD()[c.n_id_1, c.n_id_2, 0],
+                                     np.float64),
+                np.ascontiguousarray(SSS_FD()[c.n_id_1, c.n_id_2, 1],
+                                     np.float64),
+                np.ascontiguousarray(np.conj(PSS_FD()[c.n_id_2])))
+        sss_tab = tabs[0 if slot_num == 0 else 1]
+        if self._native is not None:
+            sss_c = np.ascontiguousarray(sss_sym)
+            pss_c = np.ascontiguousarray(pss_sym)
+            scal = np.empty(4)
+            ce_smooth = np.empty(62, np.complex128)
+            self._native.sync_snr(
+                sss_c.ctypes.data, pss_c.ctypes.data, sss_tab.ctypes.data,
+                tabs[2].ctypes.data, scal.ctypes.data, ce_smooth.ctypes.data)
+            tp, sp, np_est, np_blank = scal
+        else:
+            np_blank = (_sigpower(sss_sym[0:5]) + _sigpower(sss_sym[67:72])
+                        + _sigpower(pss_sym[0:5])
+                        + _sigpower(pss_sym[67:72])) / 4
+            ce_sss = sss_sym[5:67] * sss_tab
+            ce_pss = pss_sym[5:67] * tabs[2]
+            # 13-tap clamped sliding mean over both estimates, via prefix
+            # sums: sum[lo..hi] = cs[hi+1] - cs[lo] with lo/hi railed to
+            # the band edges (identical to the reference's scalar loop)
+            cs = np.zeros(63, dtype=np.complex128)
+            np.cumsum(ce_sss + ce_pss, out=cs[1:])
+            t = np.arange(62)
+            lo = np.maximum(0, t - 6)
+            hi = np.minimum(61, t + 6)
+            ce_smooth = (cs[hi + 1] - cs[lo]) / (2.0 * (hi - lo + 1))
+            np_est = (_sigpower(ce_smooth - ce_sss) * 13 / 12
+                      + _sigpower(ce_smooth - ce_pss) * 13 / 12) / 2
+            tp = _sigpower(ce_smooth)
+            sp = tp - np_est / 13
+        c.sync_tp, c.sync_sp, c.sync_np, c.sync_np_blank = \
+            tp, sp, np_est, np_blank
+        c.sync_ce = np.concatenate([np.zeros(5), ce_smooth, np.zeros(5)])
+        if np.isnan(c.sync_sp_av):
+            c.sync_tp_av, c.sync_sp_av = tp, sp
+            c.sync_np_av, c.sync_np_blank_av = np_est, np_blank
+        else:
+            c.sync_tp_av = 0.999 * c.sync_tp_av + 0.001 * tp
+            c.sync_sp_av = 0.999 * c.sync_sp_av + 0.001 * sp
+            c.sync_np_av = 0.999 * c.sync_np_av + 0.001 * np_est
+            c.sync_np_blank_av = 0.999 * c.sync_np_blank_av + 0.001 * np_blank
+
+    # ------------------------------------------------------------------
+    def _mib_try_decode(self) -> bool:
+        """Attempt the 4-frame blind MIB re-decode once 16 PBCH symbols
+        are queued; returns False if the cell should be dropped
+        (reference do_mib_decode, tracker_thread.cpp:531-749)."""
+        from ..models.coding import (conv_decode_tailbite_host,
+                                     conv_deratematch_host)
+        from ..models.modulation import lte_demodulate_host
+
+        c = self.cell
+        if len(self.mib_fifo) != 16:
+            return True
+
+        n_ports = c.n_ports
+        v3 = c.n_id_cell % 3
+        n_symb = c.n_symb_dl()
+        keep = self._pbch_keep
+        if keep is None:
+            # [16, 72] RE-selection mask: skip possible-RS positions
+            # (sc % 3 == v_shift_m3) in CRS-bearing symbols
+            symn = np.arange(16) % 4
+            rs_sym = (symn <= 1) | ((symn == 3) & (n_symb == 6))
+            keep = ~(rs_sym[:, None]
+                     & (np.arange(72)[None, :] % 3 == v3))
+            keep = self._pbch_keep = keep.reshape(-1)
+        syms16 = np.stack([e[0] for e in self.mib_fifo])     # [16, 72]
+        ce16 = np.stack([e[1] for e in self.mib_fifo])       # [16, P, 72]
+        np16 = np.stack([e[3] for e in self.mib_fifo])       # [16, P]
+        pbch_sym = syms16.reshape(-1)[keep]
+        pbch_ce = ce16.transpose(1, 0, 2).reshape(n_ports, -1)[:, keep]
+        pbch_np = np.repeat(np16.T, 72, axis=1)[:, keep]
+
+        if n_ports == 1:
+            h = pbch_ce[0]
+            gain = np.conj(h / np.abs(h) ** 2)
+            syms_mib = pbch_sym * gain
+            np_mib = pbch_np[0] * np.abs(gain) ** 2
+        else:
+            x1 = pbch_sym[0::2]
+            x2 = pbch_sym[1::2]
+            if n_ports == 2:
+                h1 = (pbch_ce[0, 0::2] + pbch_ce[0, 1::2]) / 2
+                h2 = (pbch_ce[1, 0::2] + pbch_ce[1, 1::2]) / 2
+                np_t = (pbch_np[0, 0::2] + pbch_np[1, 0::2]) / 2
+            else:
+                even = np.arange(len(x1)) % 2 == 0
+                h1 = np.where(even, (pbch_ce[0, 0::2] + pbch_ce[0, 1::2]) / 2,
+                              (pbch_ce[1, 0::2] + pbch_ce[1, 1::2]) / 2)
+                h2 = np.where(even, (pbch_ce[2, 0::2] + pbch_ce[2, 1::2]) / 2,
+                              (pbch_ce[3, 0::2] + pbch_ce[3, 1::2]) / 2)
+                np_t = np.where(even,
+                                (pbch_np[0, 0::2] + pbch_np[2, 0::2]) / 2,
+                                (pbch_np[1, 0::2] + pbch_np[3, 0::2]) / 2)
+            scale = np.abs(h1) ** 2 + np.abs(h2) ** 2
+            s1 = (np.conj(h1) * x1 + h2 * np.conj(x2)) / scale
+            s2 = np.conj((-np.conj(h2) * x1 + h1 * np.conj(x2)) / scale)
+            syms_mib = np.stack([s1, s2], 1).reshape(-1) * np.sqrt(2)
+            np_pair = (np.abs(h1) / scale) ** 2 * np_t \
+                + (np.abs(h2) / scale) ** 2 * np_t
+            np_mib = np.stack([np_pair, np_pair], 1).reshape(-1)
+
+        # host decode chain (numpy log-MAP demod, cached-plan
+        # de-ratematch, native/numpy tail-biting Viterbi): this runs
+        # every 40 ms per cell on one codeword, where per-step tensor
+        # dispatch would outweigh the math (the scanner's batched blind
+        # decode stays on tensors, models/mib.py)
+        e_est = lte_demodulate_host(syms_mib, np_mib, "qpsk")
+        e_est = e_est * (1.0 - 2.0 * self.scr.astype(np.float64))
+        d_est = conv_deratematch_host(e_est, 40)
+        c_est = conv_decode_tailbite_host(d_est)
+        crc_est = crc_parity(c_est[:24].astype(np.uint8), "crc16")
+        if n_ports == 2:
+            crc_est = crc_est ^ 1
+        elif n_ports == 4:
+            crc_est = crc_est ^ np.tile([0, 1], 8)
+
+        bw_map = {0: 6, 1: 15, 2: 25, 3: 50, 4: 75, 5: 100}
+        bw = int(c_est[0] * 4 + c_est[1] * 2 + c_est[2])
+        n_rb_ok = bw_map.get(bw, 0) == c.n_rb_dl
+        phich_dur_ok = bool(c_est[3]) == \
+            (c.phich_duration.value == "extended")
+        res = int(c_est[4] * 2 + c_est[5])
+        res_ok = res == {"1/6": 0, "1/2": 1, "one": 2, "two": 3}[
+            c.phich_resource.value]
+
+        if np.array_equal(crc_est, c_est[24:40]) and n_rb_ok \
+                and phich_dur_ok and res_ok:
+            self.mib_fifo_synchronized = True
+            c.mib_decode_failures = 0.0
+            for _ in range(16):
+                self.mib_fifo.popleft()
+        elif self.mib_fifo_synchronized:
+            c.mib_decode_failures += 1
+            for _ in range(16):
+                self.mib_fifo.popleft()
+        else:
+            c.mib_decode_failures += 0.25
+            for _ in range(4):
+                self.mib_fifo.popleft()
+
+        if c.mib_decode_failures >= CELL_DROP_THRESHOLD:
+            c.kill_me = True
+            return False
+        return True
+
+    # ------------------------------------------------------------------
+    def process(self, chunk: Optional[PduChunk],
+                fd_syms: Optional[np.ndarray]) -> None:
+        """Consume one tick's symbol-PDU chunk (one reference loop
+        iteration per symbol, tracker_thread.cpp:856-1067).
+
+        fd_syms carries the frequency-domain symbols of the whole chunk
+        [n_pdus, 72], from the batched get_fd (tracker/batched.py).
+        """
+        c = self.cell
+        n_ports = c.n_ports
+        n_symb_dl = c.n_symb_dl()
+
+        # Phase A -- ingest the tick's PDUs: frequency-domain symbols
+        # into data_fifo, CRS extraction into the per-port pending rows.
+        # The (slot, sym) labels are a running symbol counter, and the
+        # CRS REs of all new symbols extract as one gather per port
+        # against the precomputed shift/RS tables.
+        n_new = 0 if chunk is None else len(chunk)
+        if n_new and not c.kill_me:
+            start = self.slot_num * n_symb_dl + self.sym_num
+            k = start + np.arange(n_new)
+            slots_a = (k // n_symb_dl) % 20
+            syms_a = k % n_symb_dl
+            end = start + n_new
+            self.slot_num = (end // n_symb_dl) % 20
+            self.sym_num = end % n_symb_dl
+            S = np.asarray(fd_syms)
+            if S.shape != (n_new, 72):
+                raise ValueError(f"fd_syms {S.shape} for {n_new} symbols")
+            self.data_fifo.append(slots_a, syms_a, S)
+            if self._native is not None:
+                # fused Phases A+B: CRS extraction, pending management,
+                # windows + feedback, pair interpolation -- one C call
+                self._cell_tick(S, slots_a, syms_a, chunk.fo, chunk.ft)
+            else:
+                sh_all = self.rs_dl.shift_table[slots_a, syms_a]   # [n, 4]
+                cols12 = 6 * np.arange(12)
+                for port in range(n_ports):
+                    sh = sh_all[:, port]
+                    sel = np.nonzero(sh >= 0)[0]
+                    if len(sel) == 0:
+                        continue
+                    shv = sh[sel].astype(np.int64)
+                    ce_raw = np.take_along_axis(
+                        S[sel], shv[:, None] + cols12[None, :], 1) \
+                        * self._rs_conj[slots_a[sel], syms_a[sel]]
+                    new = (ce_raw, shv, slots_a[sel], syms_a[sel],
+                           chunk.fo[sel], chunk.ft[sel])
+                    pend = self.rs_pending[port]
+                    if pend is None:
+                        self.rs_pending[port] = new
+                    else:
+                        self.rs_pending[port] = tuple(
+                            np.concatenate([a, b])
+                            for a, b in zip(pend, new))
+
+        # Phase B (numpy fallback) -- per port, process every complete
+        # 3-window this tick, then time-interpolate the new filtered
+        # rows as one chunk.  (The native path fused this into
+        # _cell_tick above.)
+        if self._native is None:
+            for port in range(n_ports):
+                pend = self.rs_pending[port]
+                if pend is None or pend[0].shape[0] < 3:
+                    continue
+                m = pend[0].shape[0]
+                ce72, tp, sp, spr, npv = self._rs_windows(port, *pend)
+                slot_w = pend[2][1: m - 1]
+                sym_w = pend[3][1: m - 1]
+                self._interp_pairs(port, ce72, tp, sp, spr, npv,
+                                   slot_w, sym_w)
+                self.rs_pending[port] = tuple(
+                    np.ascontiguousarray(a[m - 2:]) for a in pend)
+
+        # Phase C -- pair data symbols with interpolated CEs: dashboard
+        # measurements, sync-channel SNR, and the 40 ms MIB re-decode.
+        # All ready symbols are popped as arrays; per-symbol Python work
+        # happens only at the rare special symbols (EMA updates at slots
+        # 0/10 syms 5/6, PSS/SSS SNR at the half-frame boundaries, PBCH
+        # appends at slot 1 syms 0-3), selected by mask.
+        n_ready = self.data_fifo.n
+        for f in self.ce_interp_fifo:
+            n_ready = min(n_ready, f.n)
+        if n_ready <= 0 or c.kill_me:
+            return
+        slots, symsn, S_rdy = self.data_fifo.pop_n(n_ready)
+        self._phase_c(n_ready, slots, symsn, lambda i: S_rdy[i])
+
+    def _phase_c(self, n_ready: int, slots, symsn, row_of) -> None:
+        """Dashboard measurements, sync SNR and MIB appends over
+        n_ready emitted symbols.  row_of(i) returns symbol i's
+        frequency-domain row -- dense callers index the popped
+        data-fifo slab; the device-loop caller looks up the sparse
+        special-row map (only sync/PBCH indices are ever requested)."""
+        c = self.cell
+        per_port = [f.pop_n(n_ready) for f in self.ce_interp_fifo]
+        ce_p = [pp[0] for pp in per_port]                  # each [n, 72]
+        # per-port scalar tracks stay as lists of [n] arrays; full
+        # [n_ports, n] matrices are never needed -- only single columns
+        # at the rare special symbols below (lazy gathers beat 4 stacks
+        # per tick on the hot path)
+        tp_p = [pp[1] for pp in per_port]
+        sp_p = [pp[2] for pp in per_port]
+        spr_p = [pp[3] for pp in per_port]
+        np_p = [pp[4] for pp in per_port]
+
+        def col(track, i):
+            return np.array([a[i] for a in track])
+
+        # instant dashboard registers carry the LAST processed symbol
+        c.ce = np.stack([cep[-1] for cep in ce_p])
+        c.crs_sp_raw = col(spr_p, -1)
+        c.crs_np = col(np_p, -1)
+
+        first_init = c.crs_sp_raw_av is None
+        if first_init:
+            c.crs_tp_av = col(tp_p, 0)
+            c.crs_sp_raw_av = col(spr_p, 0)
+            c.crs_np_av = col(np_p, 0)
+        ema = ((slots == 0) | (slots == 10)) & ((symsn == 5) | (symsn == 6))
+        for i in np.nonzero(ema)[0]:
+            if first_init and i == 0:
+                continue   # the init symbol itself takes no EMA step
+            c.crs_tp_av = 0.999 * c.crs_tp_av + 0.001 * col(tp_p, i)
+            c.crs_sp_raw_av = 0.999 * c.crs_sp_raw_av + 0.001 * col(spr_p, i)
+            c.crs_np_av = 0.999 * c.crs_np_av + 0.001 * col(np_p, i)
+
+        n_symb = c.n_symb_dl()
+        sync = ((slots == 0) | (slots == 10)) \
+            & ((symsn == n_symb - 2) | (symsn == n_symb - 1))
+        pbch = (slots == 1) & (symsn <= 3)
+        for i in np.nonzero(sync | pbch)[0]:
+            sl, sy = int(slots[i]), int(symsn[i])
+            dsyms = row_of(i)
+            if sync[i]:
+                self._do_pss_sss_sigpower_ce(dsyms, sl, sy)
+            if pbch[i]:
+                self.mib_fifo.append(
+                    (dsyms, np.stack([cep[i] for cep in ce_p]),
+                     col(sp_p, i), col(np_p, i)))
+                if len(self.mib_fifo) == 16 and not self._mib_try_decode():
+                    return
+
+    # ------------------------------------------------------------------
+    def process_device(self, chunk: Optional[PduChunk], slots_a, syms_a,
+                       sh_all, rs_sel, ce_rows, spec_sel, spec_rows,
+                       final_phase: float) -> None:
+        """Device-loop tick (tracker/device_loop.py): the demod + CRS
+        extraction already ran on device -- consume the downloaded
+        [n_rs, 12] raw-CE rows per port and the sparse special-symbol
+        rows, then run the UNCHANGED host f64 control loops (window
+        statistics, sequential FOE/frame-timing feedback, CE
+        interpolation) and the sparse Phase C.
+
+        slots_a/syms_a/sh_all/rs_sel/spec_sel are the planner's
+        structural arrays for this tick (label arithmetic identical to
+        process(); the planner read the counters, this advances them).
+        """
+        c = self.cell
+        n_new = 0 if chunk is None else len(chunk)
+        if n_new and not c.kill_me:
+            self.bulk_phase_offset = float(final_phase)
+            n_symb = c.n_symb_dl()
+            end = self.slot_num * n_symb + self.sym_num + n_new
+            self.slot_num = (end // n_symb) % 20
+            self.sym_num = end % n_symb
+            for j, i in enumerate(spec_sel):
+                self._spec_map[self._sym_base + int(i)] = spec_rows[j]
+            self._sym_base += n_new
+            for port in range(c.n_ports):
+                sel = rs_sel[port]
+                if len(sel) == 0:
+                    pend = self.rs_pending[port]
+                else:
+                    new = (np.ascontiguousarray(ce_rows[port],
+                                                np.complex128),
+                           sh_all[sel, port].astype(np.int64),
+                           slots_a[sel], syms_a[sel],
+                           chunk.fo[sel], chunk.ft[sel])
+                    pend = self.rs_pending[port]
+                    pend = new if pend is None else tuple(
+                        np.concatenate([a, b])
+                        for a, b in zip(pend, new))
+                if pend is not None and pend[0].shape[0] >= 3:
+                    m = pend[0].shape[0]
+                    if self._native is not None:
+                        self._port_tick(port, *pend)
+                    else:
+                        ce72, tp, sp, spr, npv = self._rs_windows(
+                            port, *pend)
+                        self._interp_pairs(port, ce72, tp, sp, spr, npv,
+                                           pend[2][1: m - 1],
+                                           pend[3][1: m - 1])
+                    pend = tuple(np.ascontiguousarray(a[m - 2:])
+                                 for a in pend)
+                self.rs_pending[port] = pend
+
+        # sparse Phase C: labels recomputed from the absolute emitted-
+        # row counter (emitted row j corresponds to absolute symbol j,
+        # the _emit_rows bootstrap invariant); symbol rows exist only at
+        # the special indices, exactly the ones _phase_c reads
+        n_ready = min((f.n for f in self.ce_interp_fifo), default=0)
+        if n_ready <= 0 or c.kill_me:
+            return
+        base = self._emitted_base
+        n_symb = c.n_symb_dl()
+        k = base + np.arange(n_ready)
+        slots = (k // n_symb) % 20
+        symsn = k % n_symb
+        self._emitted_base = base + n_ready
+        self._phase_c(n_ready, slots, symsn,
+                      lambda i: self._spec_map.pop(base + i))
+        # _phase_c can return mid-batch (a failed MIB decode at the
+        # 16-PDU boundary); entries whose absolute index is already
+        # below the advanced emit counter will never be requested --
+        # prune them so repeated decode failures cannot leak rows
+        if self._spec_map:
+            for key in [key for key in self._spec_map
+                        if key < self._emitted_base]:
+                del self._spec_map[key]

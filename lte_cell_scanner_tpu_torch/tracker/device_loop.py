@@ -1,0 +1,229 @@
+"""Device-resident tracker tick: demod + CRS extraction on the device.
+
+The host control loops read, per tick and cell, only the 12 CRS
+subcarriers of each RS symbol (reference per-symbol loop,
+src/tracker_thread.cpp:856-906, extracts CRS from each demodulated
+symbol; :176-393 runs the per-RS-window statistics and FOE/TOE feedback
+on them) and a few SPECIAL symbols: the PSS/SSS sync-SNR pair at each
+half frame and the 4 PBCH symbols per frame (slot 1, syms 0-3).  So the
+tick's device program runs the batched demod (tracker/batched.py), then
+
+- the per-port CRS extraction (shift-table gather x conjugated-RS
+  multiply), so only the [n_rs, 12] raw channel-estimate rows come down
+  (12/72 of the RS symbols' bins, none of the other symbols);
+- the special rows, gathered and downloaded as a dense [n_spec, 72]
+  slab (~6% of symbols).
+
+Everything downstream is unchanged host float64: the RS-window
+statistics, the sequential FOE/frame-timing register chain, interp72 +
+pair interpolation, sync SNR and the 40 ms MIB re-decode run through the
+same native/numpy code as the dense path
+(cell_tracker.TrackedCellProcessor.process_device).
+
+A tick crosses the host-device boundary twice: ONE upload (the raw block
+as (re, im) planes -- float16 when it sits on the 8-bit ADC grid --
+plus the packed gather metadata, laid out in one pinned byte buffer,
+batched.upload) and ONE download (a packed float vector: raw-CE planes,
+special-row planes and final phases).  The gather indices are built on
+the host, which knows every label; masked rows carry a zero table value
+(CRS) or a zero mask (special rows), so they come back as zeros.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .batched import (_get_fd_block_core, _get_fd_core,
+                      _stage_block_inputs, planes_to_complex, upload,
+                      wire_planes)
+
+_RS_BUCKET = 64        # rs-row / special-row axis rounding
+
+
+def _bucket_up(n: int, b: int = _RS_BUCKET) -> int:
+    return max(b, -(-n // b) * b)
+
+
+def _tick_program(planes, data, starts, fln, init_phase, fc_requested,
+                  fc_programmed, fs_programmed, rs_flat, rs_tab, spec_rows,
+                  spec_mask) -> torch.Tensor:
+    """The tick's device program: batched demod + CRS/special gather.
+
+    planes [n_ext, 2] raw-block (re, im) planes with starts [B, S] (or
+    data [B, S, 128, 2] window planes); fln [B, 3, S]: (fo, late, nse)
+    per symbol -- padding rows have nse == 0, the validity mask.
+    rs_flat [B, P, NR, 12]: each CRS sample's index into the flattened
+    [B, S, 72] symbols; rs_tab [B, P, NR, 12, 2]: its conjugated RS
+    value (zero for masked rows).  spec_rows [B, NQ]: each special row's
+    index into [B * S] symbol rows, spec_mask [B, NQ] 1/0.
+
+    Returns one float vector: [ce_re, ce_im, spec_re, spec_im, final]
+    raveled in that order (the host unpacks by the known sizes)."""
+    rdt = fln.dtype
+    fo, late, nse = fln[:, 0], fln[:, 1], fln[:, 2]
+    valid = nse > 0
+    if planes is not None:
+        syms, final = _get_fd_block_core(
+            planes_to_complex(planes, rdt), starts, fo, late, nse, valid,
+            init_phase, fc_requested, fc_programmed, fs_programmed)
+    else:
+        syms, final = _get_fd_core(
+            torch.view_as_complex(data), fo, late, nse, valid, init_phase,
+            fc_requested, fc_programmed, fs_programmed)
+    vals = torch.view_as_real(syms).reshape(-1, 2)[rs_flat]  # [..., 12, 2]
+    v_re, v_im = vals[..., 0], vals[..., 1]
+    t_re, t_im = rs_tab[..., 0], rs_tab[..., 1]
+    ce_re = v_re * t_re - v_im * t_im
+    ce_im = v_re * t_im + v_im * t_re
+    spec = torch.view_as_real(syms.reshape(-1, 72)[spec_rows]) \
+        * spec_mask[..., None, None]                        # [B, NQ, 72, 2]
+    return torch.cat([ce_re.reshape(-1), ce_im.reshape(-1),
+                      spec[..., 0].reshape(-1), spec[..., 1].reshape(-1),
+                      final])
+
+
+def _plans(cell_pdus):
+    """Per-cell structural plans from each processor's running (slot,
+    sym) counter: labels, CRS shifts, the RS rows of each port and the
+    special rows (host-known label arithmetic)."""
+    plans = []
+    for proc, chunk in cell_pdus:
+        m = len(chunk)
+        c = proc.cell
+        n_symb = c.n_symb_dl()
+        start = proc.slot_num * n_symb + proc.sym_num
+        k = start + np.arange(m)
+        slots_a = (k // n_symb) % 20
+        syms_a = k % n_symb
+        sh_all = proc.rs_dl.shift_table[slots_a, syms_a]       # [m, 4]
+        rs_sel = [np.nonzero(sh_all[:, p] >= 0)[0]
+                  for p in range(c.n_ports)]
+        sync = ((slots_a == 0) | (slots_a == 10)) \
+            & ((syms_a == n_symb - 2) | (syms_a == n_symb - 1))
+        pbch = (slots_a == 1) & (syms_a <= 3)
+        spec_sel = np.nonzero(sync | pbch)[0]
+        plans.append((slots_a, syms_a, sh_all, rs_sel, spec_sel))
+    return plans
+
+
+def stage_tick(cell_pdus: Sequence[Tuple[object, object]], state,
+               raw_block: np.ndarray = None, block_seq: int = -1,
+               device=None):
+    """Host staging of one tick and its single upload.  Returns (the
+    arguments of _tick_program, plans, the packed output's (B, P, NR,
+    NQ))."""
+    dev = resolve_device(device)
+    wdt = np.float32 if dev.type == "cuda" else np.float64
+    B = len(cell_pdus)
+    ext, data, starts, fo, late, nse, _valid, init_phase = \
+        _stage_block_inputs(cell_pdus, raw_block, block_seq)
+    S = fo.shape[1]
+    plans = _plans(cell_pdus)
+    nr_max = max([1] + [len(s) for p in plans for s in p[3]])
+    nq_max = max([1] + [len(p[4]) for p in plans])
+    NR = _bucket_up(nr_max)
+    NQ = _bucket_up(nq_max)
+    P = max(proc.cell.n_ports for proc, _ in cell_pdus)
+
+    cols = 6 * np.arange(12)
+    rs_flat = np.zeros((B, P, NR, 12), np.int64)
+    rs_tab = np.zeros((B, P, NR, 12, 2), wdt)
+    spec_rows = np.zeros((B, NQ), np.int64)
+    spec_mask = np.zeros((B, NQ), wdt)
+    for b, ((proc, _chunk), plan) in enumerate(zip(cell_pdus, plans)):
+        slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
+        for p, sel in enumerate(rs_sel):
+            n = len(sel)
+            rs_flat[b, p, :n] = ((b * S + sel) * 72)[:, None] \
+                + sh_all[sel, p][:, None] + cols
+            tab = proc._rs_conj[slots_a[sel], syms_a[sel]]      # [n, 12]
+            rs_tab[b, p, :n, :, 0] = tab.real
+            rs_tab[b, p, :n, :, 1] = tab.imag
+        spec_rows[b, : len(spec_sel)] = b * S + spec_sel
+        spec_mask[b, : len(spec_sel)] = 1.0
+
+    fln = np.stack([fo, late, nse], axis=1).astype(wdt)     # [B, 3, S]
+    tail = [fln, init_phase.astype(wdt), rs_flat, rs_tab, spec_rows,
+            spec_mask]
+    if ext is not None:
+        planes, starts_t, *rest = upload(
+            [wire_planes(ext, dev), starts] + tail, dev)
+        head = (planes, None, starts_t)
+    else:
+        d, *rest = upload([np.ascontiguousarray(
+            data.view(np.float64).reshape(data.shape + (2,)), wdt)] + tail,
+            dev)
+        head = (None, d, None)
+    fln_t, ph_t, rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t = rest
+    args = head + (fln_t, ph_t, float(state.fc_requested),
+                   float(state.fc_programmed), float(state.fs_programmed),
+                   rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t)
+    return args, plans, (B, P, NR, NQ)
+
+
+def download(packed: torch.Tensor) -> np.ndarray:
+    """The tick's one download, as float64 (pinned staging on the
+    card)."""
+    if packed.device.type != "cuda":
+        return packed.double().numpy()
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    torch.cuda.current_stream(packed.device).synchronize()
+    return host.numpy().astype(np.float64)
+
+
+def unpack(packed: np.ndarray, shape):
+    """(ce_raw [B, P, NR, 12], spec_rows [B, NQ, 72], final [B])."""
+    B, P, NR, NQ = shape
+    n_ce = B * P * NR * 12
+    n_sp = B * NQ * 72
+    ce_re = packed[:n_ce].reshape(B, P, NR, 12)
+    ce_im = packed[n_ce: 2 * n_ce].reshape(B, P, NR, 12)
+    sp_re = packed[2 * n_ce: 2 * n_ce + n_sp].reshape(B, NQ, 72)
+    sp_im = packed[2 * n_ce + n_sp: 2 * (n_ce + n_sp)].reshape(B, NQ, 72)
+    final = packed[2 * (n_ce + n_sp):]
+    return ce_re + 1j * ce_im, sp_re + 1j * sp_im, final
+
+
+def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
+                         state, raw_block: np.ndarray = None,
+                         block_seq: int = -1, device=None,
+                         timings: dict = None) -> None:
+    """Run one tracker tick for every (processor, PduChunk) pair with
+    the demod + CRS extraction on ``device`` (None = the card), then
+    drive each processor's host control loops on the downloaded rows
+    (TrackedCellProcessor.process_device).
+
+    The planner reads the processors' (slot, sym) counters; the
+    processors advance them when applying the tick.  ``timings``: if a
+    dict is given, the wall seconds of the host staging with its upload
+    ("stage"), the device program, synchronised ("program"), the
+    download ("download") and the host control loops ("control") are
+    added to it."""
+    t0 = time.perf_counter()
+    args, plans, shape = stage_tick(cell_pdus, state, raw_block, block_seq,
+                                    device)
+    t1 = time.perf_counter()
+    out = _tick_program(*args)
+    if timings is not None and out.device.type == "cuda":
+        torch.cuda.current_stream(out.device).synchronize()
+    t2 = time.perf_counter()
+    packed = download(out)
+    t3 = time.perf_counter()
+    ce_raw, spec_rows, final = unpack(packed, shape)
+    for b, ((proc, chunk), plan) in enumerate(zip(cell_pdus, plans)):
+        slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
+        rows = [ce_raw[b, p, : len(sel)] for p, sel in enumerate(rs_sel)]
+        proc.process_device(chunk, slots_a, syms_a, sh_all, rs_sel, rows,
+                            spec_sel, spec_rows[b, : len(spec_sel)],
+                            float(final[b]))
+    if timings is not None:
+        t4 = time.perf_counter()
+        for k, v in (("stage", t1 - t0), ("program", t2 - t1),
+                     ("download", t3 - t2), ("control", t4 - t3)):
+            timings[k] = timings.get(k, 0.0) + v

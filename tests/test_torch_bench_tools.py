@@ -1,7 +1,9 @@
 """The port's kernel benches (tools_torch/bench_corr_v2.py and
-tools_torch/bench_kernels.py) run end to end on the CPU at a tiny size:
-every requested variant reports its time, parity holds its bars, and a
-bad request or a missing card ends non-zero.  On the CPU the kernels'
+tools_torch/bench_kernels.py) and tracker benches
+(tools_torch/bench_tracker.py, tools_torch/bench_tracker_device.py) run
+end to end on the CPU at a tiny size: every requested variant reports
+its time, parity holds its bars, the tracker holds its cells, and a bad
+request or a missing card ends non-zero.  On the CPU the kernels'
 plain versions run, so the times say nothing about any device."""
 
 import json
@@ -9,7 +11,8 @@ import json
 import pytest
 import torch
 
-from tools_torch import bench_corr_v2, bench_kernels
+from tools_torch import (bench_corr_v2, bench_kernels, bench_tracker,
+                         bench_tracker_device)
 
 TINY = ["--device", "cpu", "--ppm", "5", "--samples", str(2 * 9600 + 400),
         "--repeats", "1"]
@@ -66,7 +69,34 @@ def test_unknown_variant_raises(tool, variant):
         tool.main(TINY + ["--variants", variant])
 
 
-@pytest.mark.parametrize("tool", [bench_corr_v2, bench_kernels])
+def test_bench_tracker_holds_two_cells(capsys):
+    rc = bench_tracker.main(["--device", "cpu", "--cells", "2", "--runs",
+                             "1", "--seconds", "0.3", "--json"])
+    res = _json_line(capsys)
+    assert rc == 0
+    assert res["metric"] == "tracker_realtime_factor"
+    assert res["device"] == "cpu" and res["cells"] == 2
+    assert res["healthy"] and res["value"] > 0
+    assert sorted(c["n_id_cell"] for c in res["tracked"]) == [271, 277]
+    assert all(c["mib_synced"] for c in res["tracked"])
+    assert abs(res["frequency_offset"] - 200.0) < 50.0
+    assert {"producer", "control"} <= set(res["split_ms_per_stream_s"])
+
+
+def test_bench_tracker_device_reports_every_shape(capsys):
+    rc = bench_tracker_device.main(["--device", "cpu", "--cells", "1,3",
+                                    "--syms", "32,64", "--repeats", "1",
+                                    "--json"])
+    res = _json_line(capsys)
+    assert rc == 0 and res["device"] == "cpu"
+    assert [(r["cells"], r["syms"]) for r in res["rows"]] == \
+        [(1, 32), (1, 64), (3, 32), (3, 64)]
+    assert all(r["ms_per_call"] > 0 and r["realtime_factor"] > 0
+               for r in res["rows"])
+
+
+@pytest.mark.parametrize("tool", [bench_corr_v2, bench_kernels,
+                                  bench_tracker, bench_tracker_device])
 def test_no_card_exits_non_zero(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main([]) == 1

@@ -74,7 +74,7 @@ def _map_operands(precision, n_t, n_cap, seed, device):
 # capture at T = 93, and a 160 ms one)
 MAP_SHAPES = [(3, 137 + 5), (9, 9600 + 401), (21, 2 * 9600 + 777),
               (5, 9600 + 401), (16, 2 * 9600 + 777), (93, 2 * 9600 + 777),
-              (93, 153600), (93, 307200)]
+              (93, 153600), (93, 307200), (111, 153600)]
 
 
 @pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
@@ -576,3 +576,135 @@ def test_debug_dump_takes_the_host_route_on_the_card(cuda, tmp_path):
         (3, 9600)
     assert [(c.n_id_cell(), c.sfn) for c in got] == \
         [(c.n_id_cell(), c.sfn) for c in want]
+
+
+# ---------------------------------------------------------------------------
+# The streaming tracker (tracker/) on the card
+# ---------------------------------------------------------------------------
+
+def _tracker_stream():
+    """The 400 ms stream of tests/test_tracker.py:23-35 (cell 277, +300
+    Hz, 5 dB), made by the port's own simulator."""
+    from lte_cell_scanner_tpu_torch.cell import CpType
+    from lte_cell_scanner_tpu_torch.sim import (apply_freq_offset, awgn,
+                                                create_dl_sig)
+    rng = np.random.default_rng(11)
+    sig = create_dl_sig(CpType.NORMAL, 400, 0, 92, 1, 0.4, rng=rng,
+                        n_ports=2, sfn=4)
+    return awgn(apply_freq_offset(sig, 300.0), 5.0, rng=rng)
+
+
+def _track(sig, **kw):
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    runner = TrackerRunner(FC, FC, FS, **kw)
+    try:
+        for i in range(0, len(sig), 10000):
+            runner.process_block(sig[i: i + 10000])
+    finally:
+        runner.close()
+    return runner
+
+
+def test_tracker_native_runtime_loads(cuda):
+    from lte_cell_scanner_tpu_torch.io import native
+    lib = native.load()
+    assert native.get_lib() is lib
+    assert native.LIB_PATH.parent.name == "build"
+
+
+@pytest.mark.parametrize("adc", [False, True], ids=["bf16", "int8"])
+def test_searcher_t3_map_matches_its_plain_version(cuda, adc):
+    """The background searcher's one hypothesis: T = 3 templates (padded
+    to one column group) at the full 153600-sample capture."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import _front_staging
+    cap = two_cell_capture()
+    if adc:
+        cap = adc_quantize(cap)
+    cap_t, _tmpl, _starts, kern, _n = _front_staging(
+        cap, np.array([200.0]), FC, FC, FS, "auto", cuda, None, True)
+    assert kern.taps.shape[1] == 3
+    n_lags = cap_t.shape[0] - 136
+    if adc:
+        planes = corr_cuda.capture_planes_int8(cap_t)
+        got = corr_cuda.corr_pow_int8(planes, kern.taps, n_lags,
+                                      packed=kern.packed)
+        ref = corr_cuda.corr_pow_int8_plain(planes, kern.taps, n_lags)
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    else:
+        planes = corr_cuda.capture_planes_bf16(cap_t)
+        got = corr_cuda.corr_pow_bf16(planes, kern.taps, n_lags,
+                                      packed=kern.packed).float()
+        ref = corr_cuda.corr_pow_bf16_plain(planes, kern.taps,
+                                            n_lags).float()
+        tol = 2.0 ** -7 * torch.maximum(got.abs(), ref.abs()) \
+            + 1e-5 * ref.max()
+        assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("adc_grid,wire", [(True, torch.float16),
+                                            (False, torch.float32)],
+                         ids=["float16-planes", "float32-planes"])
+def test_device_loop_tick_matches_the_cpu_program(cuda, adc_grid, wire):
+    from lte_cell_scanner_tpu_torch.tracker.device_loop import (
+        _tick_program, download)
+    from tools_torch.bench_tracker_device import staged_tick
+    args = staged_tick(4, 64, "cuda", adc_grid=adc_grid)
+    assert args[0].dtype == wire
+    got = download(_tick_program(*args))
+    ref = _tick_program(*staged_tick(4, 64, "cpu", adc_grid=adc_grid)) \
+        .numpy()
+    assert got.shape == ref.shape
+    # the demodulated rows apart from the 4 cells' final phases
+    for sl in (slice(None, -4), slice(-4, None)):
+        assert np.abs(got[sl] - ref[sl]).max() \
+            <= 1e-3 * np.abs(ref[sl]).max()
+
+
+def test_tracker_holds_a_cell_on_the_card(cuda):
+    sig = _tracker_stream()
+    corr_cuda.reset_launch_counts()
+    runner = _track(sig)
+    assert runner.device.type == "cuda" and runner._use_device_loop()
+    assert _launched().get("pss_corr_bf16", 0) >= 1
+    assert [c.n_id_cell for c in runner.cells] == [277]
+    proc = runner.processors[277]
+    assert proc._native is not None and proc.mib_fifo_synchronized
+    assert runner.cells[0].health_pct() > 99.0
+    assert abs(runner.state.frequency_offset - 300.0) < 50.0
+
+
+def test_async_searcher_on_its_own_stream(cuda):
+    sig = _tracker_stream()
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    runner = TrackerRunner(FC, FC, FS, search_async=True, search_period=5.0)
+    try:
+        for _ in range(10):
+            for i in range(0, len(sig), 10000):
+                runner.process_block(sig[i: i + 10000])
+            if runner.cells:
+                break
+            if runner._search_future is not None:
+                runner._search_future.result(timeout=300)
+        assert runner._search_stream is not None
+        assert [c.n_id_cell for c in runner.cells] == [277]
+    finally:
+        runner.close()
+
+
+def test_kalibrate_on_the_card(cuda):
+    from lte_cell_scanner_tpu_torch.io.capture import SimSource
+    from lte_cell_scanner_tpu_torch.tracker.runner import kalibrate
+    src = SimSource(freq_offset=31e3, coupled_fc=FC, seed=5)
+    corr_cuda.reset_launch_counts()
+    fo = kalibrate(lambda: src.capture(FC)[0], FC, FC, FS, max_tries=2)
+    assert _launched().get("pss_corr_bf16", 0) >= 1
+    assert abs(fo - 31e3) < 50.0
+
+
+def test_cli_track_on_the_card(cuda, capsys):
+    from lte_cell_scanner_tpu_torch import cli
+    assert cli.main(["track", "-f", "739e6", "--sim", "--duration", "0.5",
+                     "--no-tui", "-p", "10"]) == 0
+    out = capsys.readouterr().out
+    assert "  Cell 277  ports 2  CP N  nRB   6" in out
+    assert "health 100.0%" in out

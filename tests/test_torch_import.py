@@ -71,6 +71,8 @@ def test_importing_the_port_loads_no_jax_module():
         + ["tools_torch." + p.stem for p in _tool_files()] \
         + ["bench_torch"]
     assert "tools_torch.bench_kernels" in mods
+    assert {"tools_torch.bench_tracker", "tools_torch.bench_tracker_device",
+            "lte_cell_scanner_tpu_torch.io.native"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -83,4 +85,7 @@ def test_importing_the_port_loads_no_jax_module():
     new = json.loads(out.strip().splitlines()[-1])
     assert "lte_cell_scanner_tpu_torch.models.search" in new
     assert "lte_cell_scanner_tpu_torch.io.capture" in new
+    assert {"lte_cell_scanner_tpu_torch.tracker." + m for m in (
+        "state", "producer", "batched", "device_loop", "cell_tracker",
+        "searcher", "runner", "display", "tui")} <= set(new)
     assert [m for m in new if _forbidden(m)] == []

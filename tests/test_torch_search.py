@@ -111,19 +111,31 @@ def test_dedup_keeps_the_strongest_detection():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("skip_ids", frozenset({277})),
+    ("search_mesh", None),
 ])
 def test_config_from_fields_refuses_unported_behaviour(field, value):
+    """A field the port's SearchConfig does not have is refused, never
+    dropped."""
     fields = dataclasses.asdict(js.SearchConfig())
     fields[field] = value
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=field):
         config_from_fields(fields)
+
+
+def test_config_from_fields_carries_every_field():
+    """Both SearchConfigs have the same fields, and the TPU package's
+    defaults cross as the port's."""
+    assert {f.name for f in dataclasses.fields(ts.SearchConfig)} == \
+        {f.name for f in dataclasses.fields(js.SearchConfig)}
+    assert config_from_fields(dataclasses.asdict(js.SearchConfig())) \
+        == ts.SearchConfig()
 
 
 @pytest.mark.parametrize("field,value", [
     ("interp", "2stage"),
     ("compat", "golden"),
     ("batch_peaks", False),
+    ("skip_ids", frozenset({277})),
 ])
 def test_config_from_fields_carries_search_variants(field, value):
     fields = dataclasses.asdict(js.SearchConfig())
