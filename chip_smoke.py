@@ -124,18 +124,47 @@ Phases, each fatal on failure:
      worst tick while a search is in flight; 1 cell's realtime factor;
      one device-loop tick (4 cells x 256 symbols) on the card against the
      port's float64 CPU program on the same inputs, from a block on the
-     8-bit ADC grid (float16 planes) and from a Gaussian block (float32
-     planes) (difference printed; beyond 1e-3 x max fails); the 400 ms test stream of
-     tests/test_tracker.py through the card's and the CPU's device loops
-     (frame timing, offset, health, MIB failures, each difference printed
-     beside the TPU package's device-loop tolerance);
+     8-bit ADC grid (float16 planes) and from a Gaussian block (float64
+     planes), both computed in complex128 (difference printed; beyond
+     1e-9 x max fails); the 400 ms test stream of tests/test_tracker.py
+     through the card's and the CPU's float64 device loops (frame timing,
+     offset, health, MIB failures, each difference printed beside the
+     TPU package's device-loop tolerance), end to end and with the card
+     run's searcher on the CPU (the same acquisition seeds both offset
+     registers): there frame timing or offset beyond the tolerance
+     fails;
+  9b. the rest of the user surface on the card, launch counts zeroed
+     just before and read just after each run (the counts go into the
+     kernel records as ``tools_launches``): ``cli.main(["check", ...])``
+     on the two-cell capture as a u8 and an .it file (exit 0, cell 277's
+     sync peaks every 10 ms, no drop; no kernel launched: the check
+     correlates through ``ops/corr.py``) and on a copy with 500 samples
+     cut out at 30 ms (exit 2, one drop of 500 +- 2 samples); ``search
+     -s 739e6 -p 100`` with no source named, through a fake librtlsdr
+     (``FakeDongle``) that serves the ADC-grid capture's u8 bytes after
+     the 1.5 s AGC discard: exactly one pss_corr_int8 launch and the
+     table of ``--load-files`` on the same bytes; ``track -f 739e6
+     --no-tui --duration 1.5`` through a fake dongle paced at 1.92 Msps
+     serving 2 s of one cell (277, +200 Hz, 12 dB, 8-bit grid): cell 277
+     held (health > 99%, MIB synced), the reader filling the native ring
+     (``io/native.py::SampleRing``) and dropping nothing;
+     ``tools_torch/monte_carlo.py`` on the production path, bf16 and
+     int8 (--adc-grid): 10 trials at -10 dB all successes without a
+     false alarm and one launch per trial, 3 at -30 dB all
+     thresh1_fail, then 25 trials at -14 and -12 dB printed beside
+     docs/SENSITIVITY.md's golden-path rates (not gated); the benches
+     ``tools_torch/bench_search.py``, ``bench_carriers.py`` (float and
+     ADC-grid band, front end; float band through MIB) and
+     ``bench_front_stages.py``, each JSON line printed with the card's
+     name and power limit; the phase's seconds;
  10. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
      launches are those of phase 5b; each with its ``file_launches`` of
-     phase 4b and its ``tracker_launches`` of phase 9, rows 1-2 with their
-     ``searcher_t3`` record), then the result line.
+     phase 4b, its ``tracker_launches`` of phase 9 and its
+     ``tools_launches`` of phase 9b, rows 1-2 with their ``searcher_t3``
+     record), then the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -628,15 +657,21 @@ def run_ab_path(cap_float, f_set, counts: dict) -> None:
         counts[k] = counts.get(k, 0) + v
 
 
-def run_tool(label: str, main, argv) -> dict:
-    """One run of a tools_torch bench's main(argv) on the card: its JSON
-    line echoed and parsed; fails unless it exits 0."""
+def run_captured(main, argv):
+    """main(argv) with its standard output captured; (rc, output)."""
     import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
-    out = buf.getvalue().strip()
+    return rc, buf.getvalue()
+
+
+def run_tool(label: str, main, argv) -> dict:
+    """One run of a tools_torch bench's main(argv) on the card: its JSON
+    line echoed and parsed; fails unless it exits 0."""
+    rc, out = run_captured(main, argv)
+    out = out.strip()
     print(f"{label}: {out}")
     if rc != 0:
         fail(f"{label} exited {rc}")
@@ -1217,6 +1252,9 @@ TRACKER_RUNS = 2           # timed segments per tracker run
 TRACKER_SECONDS = 2.0      # stream-seconds per timed segment
 # the TPU package's device-loop tolerances (tests/test_tracker.py:917-930)
 DL_TOL = {"frame_timing": (0.0, 1e-6), "frequency_offset": (1e-9, 1e-6)}
+# the 400 ms stream's offset register, card end to end vs the CPU (Hz):
+# between the complex64 searcher's seed (2.123e-5) and a bf16 seed's
+E2E_OFFSET_HZ = 1e-4
 
 
 class _Recorded:
@@ -1249,7 +1287,7 @@ class _Replay:
         return x
 
 
-def tracker_launches(label: str, expect, counts: dict) -> dict:
+def count_launches(label: str, expect, counts: dict) -> dict:
     """read_launches, each kernel of ``expect`` at least once, the counts
     added to ``counts``."""
     launched = read_launches(label, expect)
@@ -1355,18 +1393,23 @@ def kalibrate_maps(cap_float, cap_adc) -> None:
         del kern, cap_q
 
 
+TICK_RTOL = 1e-9           # the tick on the card vs the CPU, x max
+
+
 def tick_against_cpu() -> None:
     """One device-loop tick (4 cells x 256 symbols, 2 ports) of the
     card's program against the port's float64 CPU program on the same
     staged inputs, on both wire routes: a block on the 8-bit ADC grid
     (float16 planes, the u8 stream's route) and a Gaussian block
-    (float32 planes on the card).  The packed vector's demodulated rows
+    (float64 planes).  Both compute in complex128, so this is cuFFT
+    against pocketfft in float64.  The packed vector's demodulated rows
     (CRS and special rows, from the block) and its last 4 entries (each
-    cell's final phase, from the metadata alone) are held apart."""
+    cell's final phase, from the metadata alone) are held apart, each
+    within TICK_RTOL of its largest value."""
     from lte_cell_scanner_tpu_torch.tracker.device_loop import (
         _tick_program, download)
     from tools_torch.bench_tracker_device import staged_tick
-    for adc, wire in ((True, torch.float16), (False, torch.float32)):
+    for adc, wire in ((True, torch.float16), (False, torch.float64)):
         args = staged_tick(4, 256, "cuda", adc_grid=adc)
         if args[0].dtype != wire:
             fail(f"tick staging: planes {args[0].dtype}, expected {wire}")
@@ -1383,57 +1426,118 @@ def tick_against_cpu() -> None:
             print(f"device-loop tick (4 cells x 256 symbols, {wire} planes) "
                   f"on the card vs the float64 CPU program, {part}: max "
                   f"|diff| {err:.3e} of max |value| {scale:.3e} "
-                  f"({err / scale:.3e} relative; float32 on the card)")
-            if not err <= 1e-3 * scale:
+                  f"({err / scale:.3e} relative; bound {TICK_RTOL:g})")
+            if not err <= TICK_RTOL * scale:
                 fail(f"the card's tick ({wire} planes) disagrees with the "
                      f"CPU program in its {part}")
 
 
+def _track_stream(sig, dev: str, search_device=None, reseed=None):
+    """A device-loop TrackerRunner on ``dev`` fed ``sig`` in blocks of
+    10000; ``search_device`` runs its searcher elsewhere, and ``reseed``
+    maps the first acquisition's freq_superfine (the offset register's
+    seed) to another value.  Returns the runner and the seed it used."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    from lte_cell_scanner_tpu_torch.tracker import runner as trunner
+    real = trunner.search_once
+    seeds = []
+
+    def search_once(*a, **k):
+        if search_device is not None:
+            k = {**k, "device": search_device}
+        cells = real(*a, **k)
+        if cells and not seeds:
+            for tc in cells:
+                if reseed is not None:
+                    tc.freq_superfine = reseed(tc.freq_superfine)
+            seeds.append(cells[0].freq_superfine)
+        return cells
+
+    trunner.search_once = search_once
+    try:
+        r = TrackerRunner(FC, FC, FS_WORK, device_loop=True, device=dev)
+        for i in range(0, len(sig), 10000):
+            r.process_block(sig[i: i + 10000])
+        r.close()
+    finally:
+        trunner.search_once = real
+    return r, seeds[0] if seeds else float("nan")
+
+
+def _bf16(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float64).to(torch.bfloat16))
+
+
 def trajectory_against_cpu() -> None:
     """The 400 ms stream of tests/test_tracker.py:23-35 through the
-    card's device loop (float32 demod and phase register) and the CPU's
-    (float64): each quantity with its difference beside the TPU
-    package's device-loop tolerance.  The card run must hold the cell."""
+    card's device loop and the CPU's, both float64.  The first
+    acquisition seeds the offset register from the searcher's
+    freq_superfine, and the card's searcher is the complex64 (bf16
+    kernel) cell_search, so the runs are compared three ways:
+    - end to end: frame timing within the TPU package's device-loop
+      tolerance (DL_TOL) of the CPU run's, the offset register within
+      E2E_OFFSET_HZ of it (the complex64 seed, which the loop forgets
+      only slowly, keeps it beyond DL_TOL);
+    - from the same acquisition (the card run's searcher on the CPU), so
+      that the runs differ only in their ticks: both within DL_TOL;
+    - a control, the same acquisition with its seed rounded to bf16: it
+      must end beyond E2E_OFFSET_HZ, or that limit would not catch a
+      searcher that seeds the register at bf16 precision."""
     from lte_cell_scanner_tpu_torch.cell import CpType
-    from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.sim import (apply_freq_offset, awgn,
                                                 create_dl_sig)
-    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
     rng = np.random.default_rng(11)
     sig = create_dl_sig(CpType.NORMAL, 400, 0, 92, 1, 0.4, rng=rng,
                         n_ports=2, sfn=4)
     sig = awgn(apply_freq_offset(sig, 300.0), 5.0, rng=rng)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        r = TrackerRunner(FC, FC, FS_WORK, device_loop=True, device=dev)
-        for i in range(0, len(sig), 10000):
-            r.process_block(sig[i: i + 10000])
-        runs[dev] = r
-    card, ref = runs["cuda"], runs["cpu"]
-    ids = [c.n_id_cell for c in card.cells]
-    if ids != [277] or [c.n_id_cell for c in ref.cells] != [277]:
-        fail(f"400 ms stream: card tracked {ids}, CPU "
-             f"{[c.n_id_cell for c in ref.cells]}")
-    tg, tr = card.cells[0], ref.cells[0]
-    if not (tg.health_pct() > 99.0
-            and card.processors[277].mib_fifo_synchronized
-            and abs(card.state.frequency_offset - 300.0) < 50.0):
-        fail(f"400 ms stream on the card: health {tg.health_pct()}, "
-             f"offset {card.state.frequency_offset}")
-    for name, g, w in (("frame_timing", tg.frame_timing, tr.frame_timing),
-                       ("frequency_offset", card.state.frequency_offset,
-                        ref.state.frequency_offset)):
-        rtol, atol = DL_TOL[name]
-        ok = abs(g - w) <= atol + rtol * abs(w)
-        print(f"400 ms stream, card vs float64 CPU device loop: {name} "
-              f"{g:.9f} vs {w:.9f}, |diff| {abs(g - w):.3e} "
-              f"({'within' if ok else 'BEYOND'} the TPU package's "
-              f"tolerance rtol {rtol:g} atol {atol:g})")
-    print(f"400 ms stream: health {tg.health_pct():.1f}% vs "
-          f"{tr.health_pct():.1f}%, MIB failures {tg.mib_decode_failures} "
-          f"vs {tr.mib_decode_failures}, sync SP av rel diff "
-          f"{abs(tg.sync_sp_av / tr.sync_sp_av - 1):.3e}, CRS NP av rel "
-          f"diff {float(np.max(np.abs(tg.crs_np_av / tr.crs_np_av - 1))):.3e}")
+    ref, ref_seed = _track_stream(sig, "cpu")
+    if [c.n_id_cell for c in ref.cells] != [277]:
+        fail(f"400 ms stream: CPU tracked {[c.n_id_cell for c in ref.cells]}")
+    tr = ref.cells[0]
+    e2e = {**DL_TOL, "frequency_offset": (0.0, E2E_OFFSET_HZ)}
+    runs = (("end to end", None, None, e2e, True),
+            ("the same acquisition", "cpu", None, DL_TOL, True),
+            ("control: the seed rounded to bf16", "cpu", _bf16, e2e, False))
+    for label, search_device, reseed, tol, must_hold in runs:
+        card, seed = _track_stream(sig, "cuda", search_device, reseed)
+        ids = [c.n_id_cell for c in card.cells]
+        if ids != [277]:
+            fail(f"400 ms stream ({label}): card tracked {ids}")
+        tg = card.cells[0]
+        if not (tg.health_pct() > 99.0
+                and card.processors[277].mib_fifo_synchronized
+                and abs(card.state.frequency_offset - 300.0) < 50.0):
+            fail(f"400 ms stream on the card ({label}): health "
+                 f"{tg.health_pct()}, offset {card.state.frequency_offset}")
+        print(f"400 ms stream ({label}): offset register seeded at "
+              f"{seed:.9f} Hz, CPU run {ref_seed:.9f} Hz (|diff| "
+              f"{abs(seed - ref_seed):.3e})")
+        beyond = []
+        for name, g, w in (("frame_timing", tg.frame_timing,
+                            tr.frame_timing),
+                           ("frequency_offset", card.state.frequency_offset,
+                            ref.state.frequency_offset)):
+            rtol, atol = tol[name]
+            ok = abs(g - w) <= atol + rtol * abs(w)
+            print(f"400 ms stream ({label}), card vs float64 CPU device "
+                  f"loop: {name} {g:.9f} vs {w:.9f}, |diff| "
+                  f"{abs(g - w):.3e} ({'within' if ok else 'BEYOND'} "
+                  f"rtol {rtol:g} atol {atol:g})")
+            if not ok:
+                beyond.append(name)
+        print(f"400 ms stream ({label}): health {tg.health_pct():.1f}% vs "
+              f"{tr.health_pct():.1f}%, MIB failures "
+              f"{tg.mib_decode_failures} vs {tr.mib_decode_failures}, sync "
+              f"SP av rel diff {abs(tg.sync_sp_av / tr.sync_sp_av - 1):.3e},"
+              f" CRS NP av rel diff "
+              f"{float(np.max(np.abs(tg.crs_np_av / tr.crs_np_av - 1))):.3e}")
+        if must_hold and beyond:
+            fail(f"400 ms stream ({label}): {beyond} beyond the limit")
+        if not must_hold and "frequency_offset" not in beyond:
+            fail(f"400 ms stream ({label}): the offset register ends within "
+                 f"{E2E_OFFSET_HZ:g} Hz of the CPU run's, so that limit "
+                 f"would not catch a bf16 seed")
 
 
 def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
@@ -1458,7 +1562,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
     fo = kalibrate(lambda: src.capture(FC)[0], FC, FC, FS_WORK, ppm=120.0,
                    max_tries=2, device="cuda")
     secs = time.perf_counter() - t0
-    tracker_launches("kalibrate (+-120 ppm, T = 111)", {"pss_corr_bf16"},
+    count_launches("kalibrate (+-120 ppm, T = 111)", {"pss_corr_bf16"},
                      counts)
     print(f"kalibrate: offset {fo:.3f} Hz (simulated {KAL_FOFF:.0f} Hz) in "
           f"{secs:.3f} s")
@@ -1473,7 +1577,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
     corr_cuda.reset_launch_counts()
     res4 = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
                      stream=rec, verbose=False)
-    tracker_launches("tracker, 4 cells x 2 ports, inline searcher",
+    count_launches("tracker, 4 cells x 2 ports, inline searcher",
                      {"pss_corr_int8", "pss_corr_bf16"}, counts)
     check_tracked("tracker, 4 cells x 2 ports", res4, want)
     print_tracker_run("tracker, 4 cells x 2 ports, inline searcher", res4,
@@ -1483,7 +1587,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
     res_async = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
                           stream=_Replay(rec), search_async=True,
                           verbose=False)
-    tracker_launches("tracker, 4 cells x 2 ports, async searcher",
+    count_launches("tracker, 4 cells x 2 ports, async searcher",
                      {"pss_corr_int8", "pss_corr_bf16"}, counts)
     check_tracked("tracker, 4 cells x 2 ports, async searcher", res_async,
                   want)
@@ -1493,7 +1597,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
     corr_cuda.reset_launch_counts()
     res1 = bench_one(1, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
                      verbose=False)
-    tracker_launches("tracker, 1 cell x 2 ports",
+    count_launches("tracker, 1 cell x 2 ports",
                      {"pss_corr_int8", "pss_corr_bf16"}, counts)
     check_tracked("tracker, 1 cell x 2 ports", res1, want[:1])
     print_tracker_run("tracker, 1 cell x 2 ports", res1, smi)
@@ -1508,6 +1612,320 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
           + ("not measured (no search in flight in the timed ticks)"
              if during is None else f"{during:.3f} ms"))
     print(f"phase 9: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{counts}")
+    return counts
+
+
+class FakeDongle:
+    """Enough of librtlsdr's function surface to serve recorded u8 bytes
+    as a live dongle would: filler (code 127) through the AGC settle,
+    ``payload`` from the second buffer reset on (the first capture's
+    own), then filler again; an R820T-style tuner (fc_programmed is the
+    requested frequency, as for a replayed file).  ``pace`` reads at the
+    dongle's own rate (1.92 Msps, two bytes a sample) once the payload
+    runs."""
+
+    def __init__(self, payload: np.ndarray, pace: bool = False):
+        self.payload = np.ascontiguousarray(payload, np.uint8)
+        self.pace = pace
+        self.pos = 0
+        self.resets = 0
+        self.rate = None
+
+    def rtlsdr_get_device_count(self):
+        return 1
+
+    def rtlsdr_get_device_name(self, idx):
+        return b"chip_smoke fake dongle"
+
+    def rtlsdr_open(self, dev_p, idx):
+        return 0
+
+    def rtlsdr_close(self, dev):
+        return 0
+
+    def rtlsdr_set_sample_rate(self, dev, rate):
+        self.rate = rate
+        return 0
+
+    def rtlsdr_get_sample_rate(self, dev):
+        return self.rate
+
+    def rtlsdr_set_center_freq(self, dev, freq):
+        return 0
+
+    def rtlsdr_get_tuner_type(self, dev):
+        return 5
+
+    def rtlsdr_set_tuner_gain_mode(self, dev, mode):
+        return 0
+
+    def rtlsdr_reset_buffer(self, dev):
+        self.resets += 1
+        return 0
+
+    def rtlsdr_read_sync(self, dev, buf, n, n_read_p):
+        import ctypes
+        out = np.full(n, 127, np.uint8)
+        if self.resets >= 2:
+            part = self.payload[self.pos: self.pos + n]
+            out[: len(part)] = part
+            self.pos += len(part)
+            if self.pace:
+                time.sleep(n / (2.0 * self.rate))
+        ctypes.memmove(buf, out.tobytes(), n)
+        n_read_p._obj.value = n
+        return 0
+
+
+def check_peaks(out: str):
+    """(location, diff, dropped) rows of a ``check`` table."""
+    rows = []
+    for ln in out.splitlines():
+        parts = ln.split()
+        if len(parts) >= 3 and all(p.lstrip("-").isdigit()
+                                   for p in parts[:3]):
+            rows.append(tuple(int(p) for p in parts[:3]))
+    return rows
+
+
+def surface_check(cap_float, cap_adc, tmp: str, counts: dict) -> None:
+    """``cli.py check`` on the card: the two-cell capture as u8 and .it
+    files (clean: cell 277's sync peaks every 10 ms, no drop), then a
+    copy with 500 samples cut out at 30 ms (exit 2, the drop found
+    within 2 samples of 500)."""
+    import os
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.utils.itfile import write_itfile
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    u8 = os.path.join(tmp, "check.u8")
+    it = os.path.join(tmp, "check.it")
+    cut = os.path.join(tmp, "check_cut.it")
+    complex_to_iq_u8(cap_adc).tofile(u8)
+    write_itfile(it, {"capbuf": cap_float,
+                      "fc": np.array([int(FC)], dtype=np.int32)})
+    at = int(0.030 * 1.92e6)
+    write_itfile(cut, {"capbuf": np.concatenate([cap_float[:at],
+                                                 cap_float[at + 500:]]),
+                       "fc": np.array([int(FC)], dtype=np.int32)})
+    argv = ["-f", "739e6", "--cell-id", "277", "--foff", "35e3"]
+    period = 1.92e6 * 0.010 * (FC - 35e3) / FC
+    for label, path, want_rc in (("u8", u8, 0), (".it", it, 0),
+                                 ("500 samples cut", cut, 2)):
+        corr_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = run_captured(cli.main, ["check", path] + argv)
+        secs = time.perf_counter() - t0
+        count_launches(f"check ({label})", set(), counts)
+        rows = check_peaks(out)
+        print(f"check ({label}): exit {rc} in {secs:.3f} s; "
+              + out.strip().splitlines()[0] + "; peaks (location, diff, "
+              "dropped) " + ", ".join(str(r) for r in rows)
+              + "; " + out.strip().splitlines()[-1])
+        if rc != want_rc or len(rows) < 6:
+            fail(f"check ({label}): exit {rc}, expected {want_rc}:\n{out}")
+        if want_rc == 0:
+            if "(capture is CLEAN)" not in out or any(
+                    abs(d - period) > 2.5 or abs(n) > 2
+                    for _loc, d, n in rows):
+                fail(f"check ({label}): not 10 ms peaks without a drop")
+        else:
+            drops = [n for _loc, _d, n in rows if abs(n) > 2]
+            if len(drops) != 1 or abs(drops[0] - 500) > 2:
+                fail(f"check ({label}): drops {drops}, expected one of "
+                     f"500 +- 2")
+
+
+def surface_live_search(cap_adc, tmp: str, counts: dict) -> None:
+    """``search`` with no source named opens the dongle: through a fake
+    librtlsdr serving the two-cell ADC capture's u8 bytes, the table of
+    --load-files on the same bytes, with one pss_corr_int8 launch."""
+    import os
+    from lte_cell_scanner_tpu_torch.io import rtlsdr
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    raw = complex_to_iq_u8(cap_adc)
+    u8 = os.path.join(tmp, "live.u8")
+    raw.tofile(u8)
+    base = ["search", "-s", "739e6", "-p", "100"]
+    _c, replay = run_cli("search --load-files (same bytes)",
+                         base + ["--load-files", u8],
+                         {"pss_corr_int8": 1}, {})
+    real = rtlsdr.load_librtlsdr
+    rtlsdr.load_librtlsdr = lambda: FakeDongle(raw)
+    try:
+        got, live = run_cli("live search (fake dongle)", base,
+                            {"pss_corr_int8": 1}, counts)
+    finally:
+        rtlsdr.load_librtlsdr = real
+    if live != replay:
+        fail(f"live search printed {live}, --load-files {replay}")
+    if sorted(got) != [271, 277]:
+        fail(f"live search decoded {sorted(got)}")
+
+
+def surface_live_track(counts: dict) -> None:
+    """``track`` with no source named, through a fake dongle paced at
+    1.92 Msps serving 2 s of one cell (277, +200 Hz, 12 dB, 8-bit grid):
+    the runner must hold cell 277 (health > 99%, MIB synced), the
+    reader must fill the native ring and drop nothing."""
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.io import native, rtlsdr
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    from tools_torch.bench_tracker import SNR_DB, MultiCellStream
+    raw = complex_to_iq_u8(MultiCellStream(1, SNR_DB, f_off=TRACKER_F_OFF)
+                           .take(int(2.0 * 1.92e6)))
+    seen = {"rings": [], "dropped": [], "runners": []}
+    real = (rtlsdr.load_librtlsdr, rtlsdr.RtlSdrSource._make_ring,
+            rtlsdr._AsyncReader.stop, TrackerRunner.close)
+
+    def make_ring(self, capacity):
+        ring = real[1](self, capacity)
+        seen["rings"].append(type(ring).__name__)
+        return ring
+
+    def stop(self):
+        seen["dropped"].append((self.dropped_bytes, self.overruns))
+        real[2](self)
+
+    def close(self):
+        seen["runners"].append(self)
+        real[3](self)
+
+    rtlsdr.load_librtlsdr = lambda: FakeDongle(raw, pace=True)
+    rtlsdr.RtlSdrSource._make_ring = make_ring
+    rtlsdr._AsyncReader.stop = stop
+    TrackerRunner.close = close
+    corr_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc, out = run_captured(cli.main, ["track", "-f", "739e6",
+                                          "--no-tui", "--duration", "1.5"])
+    finally:
+        (rtlsdr.load_librtlsdr, rtlsdr.RtlSdrSource._make_ring,
+         rtlsdr._AsyncReader.stop, TrackerRunner.close) = real
+    secs = time.perf_counter() - t0
+    # kalibrate and the searcher on the dongle's u8 bytes: int8; the
+    # warmup's searches: bf16
+    count_launches("live track (fake dongle)",
+                {"pss_corr_int8", "pss_corr_bf16"}, counts)
+    tail = out.strip().splitlines()
+    print(f"live track (fake dongle, 1.5 s of stream): exit {rc} in "
+          f"{secs:.2f} s; rings {seen['rings']}, reader (dropped bytes, "
+          f"overruns) {seen['dropped']}; " + " | ".join(
+              ln.strip() for ln in tail[-6:]))
+    if rc != 0 or len(seen["runners"]) != 1:
+        fail(f"live track: exit {rc}:\n{out}")
+    runner = seen["runners"][0]
+    ids = [c.n_id_cell for c in runner.cells]
+    if ids != [277]:
+        fail(f"live track: tracked {ids}")
+    health = runner.cells[0].health_pct()
+    synced = runner.processors[277].mib_fifo_synchronized
+    print(f"live track: cell 277 health {health:.1f}%, MIB "
+          f"{'synced' if synced else 'NOT synced'}, offset register "
+          f"{runner.state.frequency_offset:.3f} Hz")
+    if not (health > 99.0 and synced):
+        fail("live track: cell 277 not held")
+    if seen["rings"] != [native.SampleRing.__name__]:
+        fail(f"live track: the reader filled {seen['rings']}, not the "
+             f"native ring")
+    if seen["dropped"] != [(0, 0)] or " / usb " in out:
+        fail(f"live track: the ring dropped {seen['dropped']}")
+
+
+MC_KNEE = {-14.0: 0.72, -12.0: 1.0}   # docs/SENSITIVITY.md, golden path
+
+
+def surface_monte_carlo(counts: dict) -> None:
+    """tools_torch/monte_carlo.py's production path on the card, bf16
+    and int8 (--adc-grid): 10 trials at -10 dB all successes without a
+    false alarm, 3 at -30 dB all thresh1_fail; then 25 trials at -14
+    and -12 dB (seed 7) printed beside the TPU package's golden-path
+    rates (docs/SENSITIVITY.md), not gated."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from tools_torch import monte_carlo
+    for adc, name in ((False, "pss_corr_bf16"), (True, "pss_corr_int8")):
+        label = f"monte carlo ({'int8, ADC grid' if adc else 'bf16'})"
+        for trials, snr, seed in ((10, -10.0, 14), (3, -30.0, 12)):
+            corr_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = monte_carlo.run_config(trials, snr, False, seed,
+                                         corr_backend="kernel",
+                                         adc_grid=adc, device="cuda")
+            secs = time.perf_counter() - t0
+            launched = count_launches(f"{label} {snr:g} dB", {name}, counts)
+            print(f"{label}: {json.dumps(res)} in {secs:.2f} s")
+            if launched[name] != trials:
+                fail(f"{label}: {launched[name]} launches for {trials} "
+                     f"trials")
+            if snr == -10.0 and not (res["success"] == 1.0
+                                     and res["false_alarm"] == 0.0):
+                fail(f"{label}: -10 dB")
+            if snr == -30.0 and res["thresh1_fail"] != 1.0:
+                fail(f"{label}: -30 dB")
+        for snr, golden in MC_KNEE.items():
+            corr_cuda.reset_launch_counts()
+            res = monte_carlo.run_config(25, snr, False, 7,
+                                         corr_backend="kernel",
+                                         adc_grid=adc, device="cuda")
+            count_launches(f"{label} {snr:g} dB knee", {name}, counts)
+            print(f"{label} {snr:g} dB, 25 trials, seed 7: success "
+                  f"{res['success']:.2f}, thresh1_fail "
+                  f"{res['thresh1_fail']:.2f}, thresh2_fail "
+                  f"{res['thresh2_fail']:.2f}, false alarm "
+                  f"{res['false_alarm']:.2f} (the TPU package's golden "
+                  f"path on the CPU, docs/SENSITIVITY.md: success "
+                  f"{golden:.2f})")
+
+
+def surface_benches(counts: dict) -> None:
+    """The bench tools on the card, each line printed (with the card's
+    name and power limit), launch counts zeroed before and read after."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from tools_torch import bench_carriers, bench_front_stages, bench_search
+    runs = (
+        ("bench_search", bench_search.main, ["--repeats", "3", "--json"],
+         {"pss_corr_bf16"}),
+        ("bench_carriers (float band)", bench_carriers.main,
+         ["--batches", "16,64", "--repeats", "3", "--json"],
+         {"pss_corr_fold_bf16"}),
+        ("bench_carriers (ADC-grid band)", bench_carriers.main,
+         ["--batches", "16,64", "--repeats", "3", "--adc-grid", "--json"],
+         {"pss_corr_fold_int8"}),
+        ("bench_carriers --full-chain (float band)", bench_carriers.main,
+         ["--batches", "64", "--repeats", "2", "--full-chain", "--json"],
+         {"pss_corr_fold_bf16"}),
+        ("bench_front_stages", bench_front_stages.main, ["--json"],
+         {"pss_corr_bf16"}))
+    for label, main, argv, expect in runs:
+        corr_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_tool(label, main, argv)
+        count_launches(label, expect, counts)
+        print(f"{label}: {time.perf_counter() - t0:.2f} s")
+        if not str(res.get("device", "")).startswith("NVIDIA"):
+            fail(f"{label}: no card name and power limit in its line")
+        if label.startswith("bench_carriers --full-chain") and \
+                res["rows"][0]["cell_ids"] != [271, 277]:
+            fail(f"{label}: decoded {res['rows'][0]['cell_ids']}")
+
+
+def phase_surface(cap_float, cap_adc) -> dict:
+    """Phase 9b: check, live search and track, the Monte-Carlo harness
+    and the bench tools on the card; returns their launch counts."""
+    import tempfile
+    t_phase = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        surface_check(cap_float, cap_adc, tmp, counts)
+        surface_live_search(cap_adc, tmp, counts)
+    surface_live_track(counts)
+    surface_monte_carlo(counts)
+    surface_benches(counts)
+    print(f"phase 9b: {time.perf_counter() - t_phase:.2f} s; launches "
           f"{counts}")
     return counts
 
@@ -1597,6 +2015,7 @@ def main() -> int:
         max_carriers_per_program=CHUNK))
 
     tracker_counts = phase_tracker(cap_float, cap_adc, records, smi)
+    tools_counts = phase_surface(cap_float, cap_adc)
 
     # each map_tc_kernel instance against its ruler of phase 5b
     for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
@@ -1623,6 +2042,7 @@ def main() -> int:
     for rec in kernels:
         rec["file_launches"] = file_counts.get(rec["name"], 0)
         rec["tracker_launches"] = tracker_counts.get(rec["name"], 0)
+        rec["tools_launches"] = tools_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Command-line cell search on one carrier or a band of carriers, and
-the realtime multi-cell tracker.
+"""Command-line cell search on one carrier or a band of carriers, the
+realtime multi-cell tracker, and the capture-integrity check.
 
 Behavioral contract: the reference CellSearch CLI
 (reference src/CellSearch.cpp:92-280: --freq-start/-s, --freq-end/-e,
@@ -8,10 +8,12 @@ Behavioral contract: the reference CellSearch CLI
 results table :576-614) plus the reference tracker's hidden replay flags
 (--drop, --repeat, --noise-power), and the reference LTE-Tracker CLI
 (reference src/LTE-Tracker.cpp:114-373: --freq/-f; the tracker/
-package, kalibrate, warmup, the text or curses dashboard).  Captures
-come from recorded files (``capbuf_XXXX.it`` with -l, or .it / raw
-rtl_sdr u8 files with --load-files) or the synthetic eNodeB (--sim);
-live dongles are not supported yet.  A band (-s .. -e on the 100 kHz
+package, kalibrate, warmup, the text or curses dashboard), and the
+reference rtl_sdr_check tool (``check``, diag.py).  Captures come from
+recorded files (``capbuf_XXXX.it`` with -l, or .it / raw rtl_sdr u8
+files with --load-files), the synthetic eNodeB (--sim) or, when none of
+those is named, a live RTL-SDR dongle through librtlsdr
+(io/rtlsdr.py).  A band (-s .. -e on the 100 kHz
 raster) runs as one batched band scan on the card
 (parallel/carriers.py::scan_band) and carrier by carrier on the CPU
 (--shard-carriers / --no-shard-carriers choose).
@@ -27,6 +29,9 @@ Usage:
         --device cpu -p 10
     python -m lte_cell_scanner_tpu_torch.cli track -f 739e6 --sim \
         --duration 5 --no-tui
+    python -m lte_cell_scanner_tpu_torch.cli search -s 739e6 -p 100
+    python -m lte_cell_scanner_tpu_torch.cli check cap.u8 -f 739e6 \
+        --cell-id 277
 """
 
 from __future__ import annotations
@@ -78,12 +83,16 @@ def _print_cells(cells, correction: float) -> None:
               f"{pr} {corr_new:.20g}")
 
 
-LIVE_ERROR = "Error: live capture from a dongle is not supported yet; use "
-
-
 def _make_source(args):
     from .cell import CpType
     from .io.capture import FileSource, SimSource
+    if args.live:
+        from .io.rtlsdr import RtlSdrSource
+        try:
+            return RtlSdrSource(device_index=max(0, args.device_index),
+                                correction=args.correction)
+        except RuntimeError as e:
+            raise SystemExit(f"Error: {e}")
     if args.sim:
         if not 0 <= args.sim_cell <= 503:
             raise SystemExit("Error: --sim-cell must be in 0..503")
@@ -140,9 +149,7 @@ def cmd_search(args) -> int:
         print("Error: --capture-ms must be >= 80 (one full 40 ms PBCH "
               "period regardless of frame phase needs an 80 ms capture)")
         return 1
-    if not (args.sim or args.load or args.load_files):
-        print(LIVE_ERROR + "--sim, -l/--load or --load-files")
-        return 1
+    args.live = not (args.sim or args.load or args.load_files)
     source = _make_source(args)
     if args.load:
         source = None  # capture_data reads capbuf_XXXX.it from data_dir
@@ -224,14 +231,12 @@ def cmd_track(args) -> int:
     if abs(args.correction - 1) > 1000e-6:
         print("Warning: crystal correction factor appears to be "
               "unreasonable")
-    if not (args.sim or args.load_files):
-        print(LIVE_ERROR + "--sim or --load-files")
-        return 1
     dev = resolve_device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("Error: no CUDA device (the tracker runs on the card; "
               "--device cpu runs it on the host)")
         return 1
+    args.live = not (args.sim or args.load_files)
     source = _make_source(args)
     if args.shard_search:
         # the multi-device searcher is not ported: one device, as the
@@ -295,6 +300,8 @@ def cmd_track(args) -> int:
                     return False
                 runner.process_block(samples)
                 n_blocks[0] += 1
+            if hasattr(source, "dropped_seconds"):
+                runner.state.usb_seconds_dropped = source.dropped_seconds()
             return True
 
         try:
@@ -312,6 +319,8 @@ def cmd_track(args) -> int:
         for samples in source.stream(block):
             runner.process_block(samples)
             n_blocks += 1
+            if hasattr(source, "dropped_seconds"):
+                runner.state.usb_seconds_dropped = source.dropped_seconds()
             if n_blocks % report_every == 0:
                 print(render(runner.state, runner.cells,
                              plots=args.expert))
@@ -324,6 +333,57 @@ def cmd_track(args) -> int:
         runner.close()
     print(render(runner.state, runner.cells, plots=args.expert))
     return 0
+
+
+def cmd_check(args) -> int:
+    """Capture-integrity diagnostics (the reference rtl_sdr_check binary,
+    reference src/rtl_sdr_check.cpp:280-424)."""
+    from .diag import check_capture
+    from .utils.itfile import read_itfile
+    from .utils.rtl import read_rtlsdr_file
+
+    if args.file.endswith(".it"):
+        d = read_itfile(args.file)
+        if "capbuf" not in d:
+            raise ValueError(f"{args.file} has no 'capbuf' variable "
+                             f"(found: {sorted(d) or 'none'})")
+        cap = d["capbuf"]
+    else:
+        cap = read_rtlsdr_file(args.file)
+    res = check_capture(cap, args.freq, args.foff, args.fs, args.cell_id,
+                        drop_seconds=args.drop, device=args.device)
+    print(f"Samples: {res.n_samples}  peak {res.peak_power_db:.1f} dB  "
+          f"peak/avg {res.peak_to_average:.0f}  "
+          f"expected period {res.expected_period:.3f}")
+    if not res.sync_found():
+        print("No sync-signal correlation found -- wrong cell ID / freq "
+              "offset, or no such cell in this capture.")
+        return 1
+    print(f"{'location':>10} {'diff':>8} {'dropped':>8}  flag")
+    for p in res.peaks:
+        print(f"{p.location:>10} {p.diff_with_prev:>8} {p.n_dropped:>8}  "
+              f"{p.severity}")
+    if res.missing:
+        print(f"Missing peaks near: {res.missing}")
+    worst = res.worst_drop()
+    print(f"Worst drop: {worst} samples"
+          + ("  (capture is CLEAN)" if worst <= 2 else ""))
+    return 0 if worst <= 2 and not res.missing else 2
+
+
+def _add_check_parser(sub) -> None:
+    pc = sub.add_parser("check", help="scan a capture for dropped samples")
+    pc.add_argument("file", help=".it capture or raw rtl_sdr u8 file")
+    pc.add_argument("-f", "--freq", type=float, required=True)
+    pc.add_argument("--cell-id", type=int, required=True,
+                    help="known cell ID whose sync signals to correlate")
+    pc.add_argument("--foff", type=float, default=0.0)
+    pc.add_argument("--fs", type=float, default=1.92e6)
+    pc.add_argument("--drop", type=float, default=0.0,
+                    help="seconds to skip at the start (AGC settle)")
+    pc.add_argument("--device", default=None,
+                    help="torch device of the correlation (default: cuda)")
+    pc.set_defaults(func=cmd_check)
 
 
 def _add_track_parser(sub) -> None:
@@ -377,7 +437,7 @@ def _add_track_parser(sub) -> None:
                          "bootstrap search")
     pt.add_argument("-c", "--correction", type=float, default=1.0)
     pt.add_argument("-i", "--device-index", type=int, default=-1,
-                    help="dongle index (live capture; not supported yet)")
+                    help="dongle index (live capture)")
     pt.add_argument("--corr-backend", default="auto",
                     choices=("auto", "pallas", "xla", "kernel", "exact"),
                     help="correlation backend of kalibrate and the "
@@ -426,7 +486,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="replay capbuf_XXXX.it files from --data-dir")
     ps.add_argument("-d", "--data-dir", default=".")
     ps.add_argument("-i", "--device-index", type=int, default=-1,
-                    help="dongle index (live capture; not supported yet)")
+                    help="dongle index (live capture)")
     ps.add_argument("-v", "--verbose", action="count", default=1)
     ps.add_argument("-b", "--brief", action="store_true",
                     help="reduce status messages (reference -b)")
@@ -485,8 +545,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="torch device to run on (default: cuda)")
     ps.set_defaults(func=cmd_search)
     _add_track_parser(sub)
+    _add_check_parser(sub)
     args = p.parse_args(argv)
-    if args.load_files is None:
+    if getattr(args, "load_files", None) is None:
         args.load_files = []
     try:
         return args.func(args)

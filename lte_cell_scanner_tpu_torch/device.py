@@ -4,6 +4,14 @@ Entry points run on the card unless the caller names another device.
 On CUDA the working types are complex64/float32 (the accelerator's
 types); on the CPU they stay complex128/float64 so results can be held
 against the reference implementation at its double-precision tolerances.
+
+The one place where the card computes in float64/complex128 is the
+tracker's tick (tracker/batched.py, tracker/device_loop.py), as the
+reference implementation's tick asks for double precision: its
+per-symbol phase register is a cumulative sum carried across the whole
+stream, and the host's float64 control loops read its rows.  The tick
+is bound by its ~50 small launches, not by arithmetic, so float64 costs
+it nothing that the host's own spread does not hide (PERF.md §6).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ capbuf.cpp:81-200): 80 ms capture from the dongle or from a recorded
 ``capbuf_XXXX.it`` file (fields ``capbuf`` + ``fc``); ``--record`` writes
 the same files.  Raw ``rtl_sdr``-format u8 files are read through
 utils.rtl.  The ``CaptureSource`` protocol is the seam where a live
-dongle plugs in (the port has none yet): ``capture`` gives one buffer
+dongle plugs in (``io/rtlsdr.py``): ``capture`` gives one buffer
 for the searches, ``stream`` the tracker's continuous sample blocks.
 """
 

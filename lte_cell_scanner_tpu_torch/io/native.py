@@ -2,8 +2,8 @@
 
 The runtime covers the reference's native sample path and the tracker's
 per-cell math: LUT-based 8-bit IQ conversion, a lock-free SPSC byte ring
-for the radio->host boundary (bound here; its caller, the live dongle
-source, is not ported yet), the producer's per-cell symbol framing
+for the radio->host boundary (``SampleRing``, filled by the live
+dongle source's reader thread, ``io/rtlsdr.py``), the producer's per-cell symbol framing
 (``ingest.cpp``), and the tracker's RS-window statistics, feedback
 chain, CE interpolation, sync SNR, demod and tail-biting Viterbi
 (``tracker_math.cpp``).
@@ -182,6 +182,38 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return load()
     except (RuntimeError, OSError, AttributeError):
         return None
+
+
+class SampleRing:
+    """SPSC byte ring over raw IQ (reference sampbuf_sync_t role): push
+    returns the bytes accepted (a full ring drops the rest), pop up to
+    ``n`` bytes."""
+
+    def __init__(self, capacity_bytes: int = 1 << 24):
+        self._lib = get_lib()
+        if self._lib is None:
+            raise RuntimeError("native ingest library unavailable")
+        self._h = self._lib.ring_create(capacity_bytes)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.ring_destroy(self._h)
+            self._h = None
+
+    def size(self) -> int:
+        return self._lib.ring_size(self._h)
+
+    def push(self, data: np.ndarray) -> int:
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        return self._lib.ring_push(self._h, data.ctypes.data, data.size)
+
+    def pop(self, n: int) -> np.ndarray:
+        out = np.empty(n, dtype=np.uint8)
+        got = self._lib.ring_pop(self._h, out.ctypes.data, n)
+        return out[:got]
+
+    def drop(self, n: int) -> int:
+        return self._lib.ring_drop(self._h, n)
 
 
 def iq_u8_to_c64(raw: np.ndarray) -> np.ndarray:

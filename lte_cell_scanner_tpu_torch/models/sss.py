@@ -75,3 +75,13 @@ def SSS_FD() -> np.ndarray:
                 table[n1, n2, si] = sss_fd(n1, n2, slot)
     return table
 
+
+
+def sss_td(n_id_1: int, n_id_2: int, slot_num: int) -> np.ndarray:
+    """137-sample time-domain SSS (CP + 128 body), complex128.
+
+    Same IDFT+CP recipe as the PSS (reference lte_lib.cpp:280-300); used by
+    the capture diagnostics (diag.py).
+    """
+    from .pss import _td_from_fd
+    return _td_from_fd(sss_fd(n_id_1, n_id_2, slot_num).astype(complex))

@@ -38,7 +38,8 @@ import torch
 from ..cell import Cell, CpType
 from ..constants import FS_LTE
 from ..device import real_dtype, tensor
-from ..ops.dsp import dft, fshift_ramp, matlab_range
+from ..ops.dsp import (dft, extract_center_subcarriers, fshift_ramp,
+                       matlab_range)
 from .pss import PSS_FD
 from .sss import SSS_FD
 from .xcorr import round_i
@@ -60,8 +61,7 @@ def _dft_segments_idx(capbuf: torch.Tensor, ci: torch.Tensor,
     segs = segs * ramp[:, None, :]
     segs = torch.roll(segs, -2, dims=-1)
     dft_out = dft(segs)
-    h = n_sc // 2
-    return torch.cat([dft_out[..., -h:], dft_out[..., 1:h + 1]], dim=-1)
+    return extract_center_subcarriers(dft_out, n_sc)
 
 
 def _smooth13(h_raw: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch
 
 from ..cell import Cell, CpType
 from ..constants import FS_LTE
-from ..ops.dsp import dft, fshift_ramp
+from ..ops.dsp import dft, extract_center_subcarriers, fshift_ramp
 from .rs import RsDl
 from .xcorr import round_i
 
@@ -80,7 +80,7 @@ def _tfg_impl(capbuf: torch.Tensor, ci: torch.Tensor, locs_i: torch.Tensor,
     segs = torch.gather(foc, 1, idx.reshape(idx.shape[0], -1)) \
         .reshape(idx.shape)                                    # [B, n_ofdm, 128]
     dft_out = dft(segs)
-    tfg = torch.cat([dft_out[..., -36:], dft_out[..., 1:37]], dim=-1)
+    tfg = extract_center_subcarriers(dft_out, 72)
     return tfg * _phase_comp(late, dtype)
 
 

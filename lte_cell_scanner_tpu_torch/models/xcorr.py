@@ -188,30 +188,28 @@ def _fold_stage(xc2: torch.Tensor, start_idx: torch.Tensor,
     return xc_single
 
 
-def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
-                     ds_comb_arm: int, lean: bool):
-    """Delay-spread combining, hypothesis collapse, sp_est, and the lean
-    refinement slab for C carriers: xc_single [C, 3, n_f, 9600], capbuf
-    [C, n_cap] (a single carrier passes C = 1).  Returns (xc_single,
-    xc_inc, pow [C, 3, 9600], frq, sp [C, n_sp], sp_inc [C, 9600], slab
-    [C, 3, 2*arm+1, 9600]) with None in the slots lean mode drops."""
-    rdt = capbuf.real.dtype
-    dev = capbuf.device
-    n_c = capbuf.shape[0]
-
-    # --- xc_delay_spread: cyclic +-arm moving average ----------------------
+def _ds_collapse(xc_single: torch.Tensor, ds_comb_arm: int):
+    """Delay-spread combining (cyclic +-arm moving average) and the
+    hypothesis collapse (first max wins): xc_single [C, 3, n_f, 9600] ->
+    (xc_inc, pow [C, 3, 9600], frq [C, 3, 9600])."""
     xc_inc = xc_single
     for t in range(1, ds_comb_arm + 1):
         xc_inc = xc_inc + torch.roll(xc_single, t, dims=-1) \
             + torch.roll(xc_single, -t, dims=-1)
     xc_inc = xc_inc / (2 * ds_comb_arm + 1)
-
-    # --- xc_peak_freq: collapse the frequency axis (first max wins) ------
     frq_collapsed = torch.argmax(xc_inc, dim=2)             # [C, 3, 9600]
     pow_collapsed = torch.gather(xc_inc, 2,
                                  frq_collapsed[:, :, None, :])[:, :, 0]
+    return xc_inc, pow_collapsed, frq_collapsed
 
-    # --- sp_est: 274-sample mean power, folded, shifted by 137 -------------
+
+def _sp_est(capbuf: torch.Tensor, lean: bool):
+    """sp_est: the 274-sample mean power, folded, shifted by 137, for
+    capbuf [C, n_cap] -> (sp [C, n_sp] or None when lean, sp_inc [C,
+    9600])."""
+    rdt = capbuf.real.dtype
+    dev = capbuf.device
+    n_c = capbuf.shape[0]
     n_cap = capbuf.shape[1]
     n_comb_sp = (n_cap - 136 - 137) // HALF_FRAME_LEN
     n_sp = n_comb_sp * HALF_FRAME_LEN
@@ -233,15 +231,31 @@ def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
         sp = (cs[:, 274: 274 + n_sp] - cs[:, :n_sp]) / 274.0
         sp_incoherent = torch.mean(
             sp.reshape(n_c, n_comb_sp, HALF_FRAME_LEN), dim=1)
-    sp_incoherent = torch.roll(sp_incoherent, 137, dims=-1)
+    return sp, torch.roll(sp_incoherent, 137, dims=-1)
 
-    refine_slab = None
-    if lean:
-        # slab[c, t, d, l] = xc_single[c, t, frq[c, t, l], (l - arm + d) % 9600]
-        rows = [torch.gather(torch.roll(xc_single, ds_comb_arm - d, dims=-1),
-                             2, frq_collapsed[:, :, None, :])[:, :, 0]
-                for d in range(2 * ds_comb_arm + 1)]
-        refine_slab = torch.stack(rows, dim=2)          # [C, 3, 2a+1, 9600]
+
+def _refine_slab(xc_single: torch.Tensor, frq_collapsed: torch.Tensor,
+                 ds_comb_arm: int) -> torch.Tensor:
+    """The lean refinement slab [C, 3, 2*arm+1, 9600]:
+    slab[c, t, d, l] = xc_single[c, t, frq[c, t, l], (l - arm + d) % 9600]."""
+    rows = [torch.gather(torch.roll(xc_single, ds_comb_arm - d, dims=-1),
+                         2, frq_collapsed[:, :, None, :])[:, :, 0]
+            for d in range(2 * ds_comb_arm + 1)]
+    return torch.stack(rows, dim=2)
+
+
+def _post_fold_stage(xc_single: torch.Tensor, capbuf: torch.Tensor,
+                     ds_comb_arm: int, lean: bool):
+    """Delay-spread combining, hypothesis collapse, sp_est, and the lean
+    refinement slab for C carriers: xc_single [C, 3, n_f, 9600], capbuf
+    [C, n_cap] (a single carrier passes C = 1).  Returns (xc_single,
+    xc_inc, pow [C, 3, 9600], frq, sp [C, n_sp], sp_inc [C, 9600], slab
+    [C, 3, 2*arm+1, 9600]) with None in the slots lean mode drops."""
+    xc_inc, pow_collapsed, frq_collapsed = _ds_collapse(xc_single,
+                                                        ds_comb_arm)
+    sp, sp_incoherent = _sp_est(capbuf, lean)
+    refine_slab = _refine_slab(xc_single, frq_collapsed, ds_comb_arm) \
+        if lean else None
     return (None if lean else xc_single, None if lean else xc_inc,
             pow_collapsed, frq_collapsed, sp, sp_incoherent, refine_slab)
 

@@ -49,7 +49,7 @@ from ..models.xcorr import (KernelOperands, _corr_stage, _fold_stage,
                             pss_templates, use_kernel_corr)
 from ..ops import corr_cuda
 from ..ops.corr_fold_cuda import corr_fold_bf16, corr_fold_int8, v4_kv_for
-from ..utils.debug import stage
+from ..utils.debug import debug_export, get_dump, stage
 
 log = logging.getLogger(__name__)
 
@@ -241,10 +241,18 @@ def _scan_chunk(captures, f_search_set: np.ndarray, fs_programmed: float,
         if int(ns_h.max()) < PEAK_CAP:
             all_peaks: List[Cell] = []
             carrier_of: List[int] = []
+            dump = get_dump() is not None
             for i in range(n_c):
                 cells_i = cells_from_peak_records(
                     recs_h[i], int(ns_h[i]), f_search_set, fc_list[i],
                     fcp_list[i])
+                if dump:
+                    sp_i = sp_inc[i].cpu().numpy()
+                    _export_carrier(pow_c[i], frq_c[i], sp_i,
+                                    compute_z_th1(sp_i, n_comb_xc,
+                                                  cfg.ds_comb_arm,
+                                                  cfg.thresh1_n_nines),
+                                    cells_i)
                 all_peaks.extend(cells_i)
                 carrier_of.extend([i] * len(cells_i))
             return _refine_from_peaks(all_peaks, carrier_of, cap_t, fc_list,
@@ -280,10 +288,24 @@ def refine_band(pow_c: torch.Tensor, frq_c: torch.Tensor,
             peaks = peak_search(pow_c[i], frq_c[i], z_th1, f_search_set,
                                 fc_list[i], fcp_list[i], None,
                                 cfg.ds_comb_arm, refine_slab=slabs[i])
+            _export_carrier(pow_c[i], frq_c[i], sp_inc[i], z_th1, peaks)
             all_peaks.extend(peaks)
             carrier_of.extend([i] * len(peaks))
     return _refine_from_peaks(all_peaks, carrier_of, cap_t, fc_list,
                               fcp_list, fs_programmed, cfg, timings)
+
+
+def _export_carrier(pow_i, frq_i, sp_i, z_th1, peaks: List[Cell]) -> None:
+    """One carrier's intermediates for offline diffing (the reference's
+    ITPP_DEBUG_EXPORT convention, macros.h:55-72), in the TPU package's
+    names and order; no-op unless a dump is active."""
+    debug_export("xc_incoherent_collapsed_pow", pow_i)
+    debug_export("xc_incoherent_collapsed_frq", frq_i)
+    debug_export("sp_incoherent", sp_i)
+    debug_export("Z_th1", z_th1)
+    if peaks:
+        debug_export("peak_ind", np.array([p.ind for p in peaks]))
+        debug_export("peak_n_id_2", np.array([p.n_id_2 for p in peaks]))
 
 
 def _refine_from_peaks(all_peaks: List[Cell], carrier_of: List[int],

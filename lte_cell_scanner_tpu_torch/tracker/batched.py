@@ -7,9 +7,10 @@ bulk-phase + lateness compensation).  Here all pending symbols of ALL
 tracked cells become one [n_cells, n_symbols, 128] batch of tensor
 operations on the runner's device: the mixers and DFTs (cuFFT on the
 card) are the tracker's FLOPs.  The sequential bulk-phase accumulator
-becomes an inclusive cumulative sum of per-symbol phase increments, in
-the device's working type (float32 on the card, float64 on the CPU);
-the host carries each cell's phase between ticks in float64.
+becomes an inclusive cumulative sum of per-symbol phase increments.
+All of it runs in complex128/float64 on every device, as the reference
+implementation's tick does; the host carries each cell's phase between
+ticks in float64.
 
 The small per-symbol control-loop math (CE filtering, FOE/TOE blending,
 MIB bookkeeping -- 12-element vectors) stays on the host in float64
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from ..constants import FS_LTE
-from ..device import real_dtype, resolve_device
+from ..device import resolve_device
+from ..ops.dsp import extract_center_subcarriers
 
 _CN = np.concatenate([np.arange(-36, 0), np.arange(1, 37)])
 _BUCKET = 32            # symbol-axis rounding
@@ -69,8 +71,7 @@ def _get_fd_core(data: torch.Tensor, fo, late, n_samp_elapsed, valid,
     mixed = data * mix
     dft_in = torch.roll(mixed, -2, dims=-1)
     dft_out = torch.fft.fft(dft_in, dim=-1) / math.sqrt(128.0)
-    syms = torch.cat([dft_out[..., -36:], dft_out[..., 1:37]],
-                     dim=-1)                                  # [B,S,72]
+    syms = extract_center_subcarriers(dft_out, 72)           # [B,S,72]
 
     incr = 2 * math.pi * n_samp_elapsed * (16.0 / FS_LTE) * (-fo)
     incr = torch.where(valid, incr, torch.zeros((), dtype=rdt, device=dev))
@@ -246,14 +247,13 @@ def upload(arrays: Sequence[np.ndarray], device: torch.device
             .view(a.shape) for a, o in zip(arrays, offs)]
 
 
-def wire_planes(ext: np.ndarray, device: torch.device) -> np.ndarray:
+def wire_planes(ext: np.ndarray) -> np.ndarray:
     """The extended raw block as [n, 2] (re, im) planes in the narrowest
     exact wire type: float16 for blocks on the 8-bit ADC grid (dongle
-    codes /128 are exact in float16's 11-bit mantissa), else the
-    device's working type."""
+    codes /128 are exact in float16's 11-bit mantissa), else float64,
+    the tick's working type on every device."""
     from ..ops.corr_cuda import is_adc_grid
-    wire = np.float16 if is_adc_grid(ext) \
-        else (np.float32 if device.type == "cuda" else np.float64)
+    wire = np.float16 if is_adc_grid(ext) else np.float64
     return np.ascontiguousarray(ext.view(np.float64).reshape(-1, 2), wire)
 
 
@@ -288,8 +288,8 @@ def batched_get_fd(cell_pdus: Sequence[Tuple[object, object]], state,
         raise ValueError(f"unknown get_fd backend {backend!r}")
 
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
-    wdt = np.float32 if dev.type == "cuda" else np.float64
+    rdt = torch.float64
+    wdt = np.float64
     (ext, data, starts, fo, late, nse, valid, init_phase) = \
         _stage_block_inputs(cell_pdus, raw_block, block_seq)
     meta = [np.stack([fo, late, nse], axis=1).astype(wdt),
@@ -298,7 +298,7 @@ def batched_get_fd(cell_pdus: Sequence[Tuple[object, object]], state,
           float(state.fs_programmed))
     if ext is not None:
         planes, starts_t, fln, ph = upload(
-            [wire_planes(ext, dev), starts] + meta, dev)
+            [wire_planes(ext), starts] + meta, dev)
         syms, final = _get_fd_block_core(
             planes_to_complex(planes, rdt), starts_t, fln[:, 0], fln[:, 1],
             fln[:, 2], fln[:, 2] > 0, ph, *fc)

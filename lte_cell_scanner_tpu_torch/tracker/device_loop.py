@@ -118,7 +118,7 @@ def stage_tick(cell_pdus: Sequence[Tuple[object, object]], state,
     arguments of _tick_program, plans, the packed output's (B, P, NR,
     NQ))."""
     dev = resolve_device(device)
-    wdt = np.float32 if dev.type == "cuda" else np.float64
+    wdt = np.float64
     B = len(cell_pdus)
     ext, data, starts, fo, late, nse, _valid, init_phase = \
         _stage_block_inputs(cell_pdus, raw_block, block_seq)
@@ -152,7 +152,7 @@ def stage_tick(cell_pdus: Sequence[Tuple[object, object]], state,
             spec_mask]
     if ext is not None:
         planes, starts_t, *rest = upload(
-            [wire_planes(ext, dev), starts] + tail, dev)
+            [wire_planes(ext), starts] + tail, dev)
         head = (planes, None, starts_t)
     else:
         d, *rest = upload([np.ascontiguousarray(

@@ -265,3 +265,37 @@ def test_cli_rejects_a_band_that_runs_backwards(capsys):
                      "--device", "cpu"]) == 1
     assert "end frequency must be >= start frequency" in \
         capsys.readouterr().out
+
+
+def test_scan_band_debug_exports_match_tpu_package(band, tmp_path):
+    """With a debug dump active, each carrier's collapsed maps,
+    sp_incoherent, Z_th1 and peak lists go to the dump in the TPU
+    package's names and order, within 1e-8 of each array's largest
+    value (the exact routes, complex128 on both sides)."""
+    from lte_cell_scanner_tpu.utils import debug as jdebug
+    from lte_cell_scanner_tpu.utils.itfile import read_itfile
+    from lte_cell_scanner_tpu_torch.utils import debug as tdebug
+    dumps = {}
+    for name, mod, run in (
+            ("port", tdebug, lambda: tc.scan_band(band, F_SET, FS,
+                                                  _port_cfg(),
+                                                  device="cpu")),
+            ("tpu", jdebug, lambda: jc.scan_band(
+                band, F_SET, FS, js.SearchConfig(),
+                mesh=jc.make_carrier_mesh(1), dtype=np.complex128))):
+        path = str(tmp_path / f"{name}.it")
+        mod.set_dump(mod.DebugDump(path))
+        try:
+            run()
+        finally:
+            mod.set_dump(None)
+        dumps[name] = read_itfile(path)
+    got, want = dumps["port"], dumps["tpu"]
+    assert list(got) == list(want)
+    assert [k for k in got if k.startswith("Z_th1")] == \
+        ["Z_th1", "Z_th1_1", "Z_th1_2"]
+    assert "peak_ind" in got and "peak_n_id_2_1" in got
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.shape == w.shape, k
+        assert np.abs(g - w).max() <= 1e-8 * max(np.abs(w).max(), 1e-300), k

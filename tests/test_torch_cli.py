@@ -124,10 +124,14 @@ def test_sim_cell_and_missing_captures_are_errors(tmp_path, capsys):
         rc, _out, err = _run(cli.main, ["search", "-s", "739e6"] + argv,
                              capsys)
         assert rc == 1 and err.startswith("Error: file not found: ")
-    rc, out, _ = _run(cli.main, ["search", "-s", "739e6"], capsys)
-    assert rc == 1
-    assert out.startswith("Error: live capture from a dongle is not "
-                          "supported")
+    # no source named: a live dongle, which this machine lacks; the same
+    # Error: as the TPU CLI's, never a fallback to another source
+    with pytest.raises(SystemExit) as got:
+        cli.main(["search", "-s", "739e6", "--device", "cpu"])
+    with pytest.raises(SystemExit) as want:
+        jcli.main(["--platform", "cpu", "search", "-s", "739e6"])
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("Error: ")
 
 
 def test_profile_brief_and_backend_names(capsys):

@@ -642,9 +642,11 @@ def test_searcher_t3_map_matches_its_plain_version(cuda, adc):
 
 
 @pytest.mark.parametrize("adc_grid,wire", [(True, torch.float16),
-                                            (False, torch.float32)],
-                         ids=["float16-planes", "float32-planes"])
+                                            (False, torch.float64)],
+                         ids=["float16-planes", "float64-planes"])
 def test_device_loop_tick_matches_the_cpu_program(cuda, adc_grid, wire):
+    """The tick computes in complex128 on the card too: cuFFT against
+    pocketfft in float64."""
     from lte_cell_scanner_tpu_torch.tracker.device_loop import (
         _tick_program, download)
     from tools_torch.bench_tracker_device import staged_tick
@@ -657,7 +659,47 @@ def test_device_loop_tick_matches_the_cpu_program(cuda, adc_grid, wire):
     # the demodulated rows apart from the 4 cells' final phases
     for sl in (slice(None, -4), slice(-4, None)):
         assert np.abs(got[sl] - ref[sl]).max() \
-            <= 1e-3 * np.abs(ref[sl]).max()
+            <= 1e-9 * np.abs(ref[sl]).max()
+
+
+def test_tracker_trajectory_matches_the_cpu_at_the_device_loop_tolerance(
+        cuda, monkeypatch):
+    """The 400 ms stream through the card's float64 device loop and the
+    CPU's, from the same acquisition (the card run's searcher on the
+    CPU: the first acquisition seeds the offset register, and the card's
+    own searcher is complex64): frame timing and offset register within
+    the TPU package's device-loop tolerances
+    (tests/test_tracker.py:917-930)."""
+    from lte_cell_scanner_tpu_torch.tracker import runner as trunner
+    sig = _tracker_stream()
+    ref = _track(sig, device_loop=True, device="cpu")
+    real = trunner.search_once
+    monkeypatch.setattr(trunner, "search_once", lambda *a, **k: real(
+        *a, **{**k, "device": "cpu"}))
+    card = _track(sig, device_loop=True, device="cuda")
+    assert [c.n_id_cell for c in card.cells] == [277]
+    assert [c.n_id_cell for c in ref.cells] == [277]
+    assert card.cells[0].frame_timing == pytest.approx(
+        ref.cells[0].frame_timing, rel=0.0, abs=1e-6)
+    assert card.state.frequency_offset == pytest.approx(
+        ref.state.frequency_offset, rel=1e-9, abs=1e-6)
+
+
+def test_tracker_trajectory_end_to_end_within_the_measured_limit(cuda):
+    """The 400 ms stream with the card's own complex64 searcher: frame
+    timing within the device-loop tolerance of the CPU run's, and the
+    offset register within chip_smoke.E2E_OFFSET_HZ of it (its seed
+    comes from the complex64 search, which the loop forgets slowly)."""
+    from chip_smoke import E2E_OFFSET_HZ
+    sig = _tracker_stream()
+    ref = _track(sig, device_loop=True, device="cpu")
+    card = _track(sig, device_loop=True, device="cuda")
+    assert [c.n_id_cell for c in card.cells] == [277]
+    assert [c.n_id_cell for c in ref.cells] == [277]
+    assert card.cells[0].frame_timing == pytest.approx(
+        ref.cells[0].frame_timing, rel=0.0, abs=1e-6)
+    assert card.state.frequency_offset == pytest.approx(
+        ref.state.frequency_offset, rel=0.0, abs=E2E_OFFSET_HZ)
 
 
 def test_tracker_holds_a_cell_on_the_card(cuda):
@@ -708,3 +750,100 @@ def test_cli_track_on_the_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "  Cell 277  ports 2  CP N  nRB   6" in out
     assert "health 100.0%" in out
+
+
+# ---------------------------------------------------------------------------
+# check, live capture through a fake dongle (chip_smoke.FakeDongle), the
+# band's debug exports
+# ---------------------------------------------------------------------------
+
+def _table(out):
+    lines = out.splitlines()
+    return lines[next(i for i, ln in enumerate(lines)
+                      if ln.startswith("Detected the following")):]
+
+
+def test_live_search_through_a_fake_dongle(cuda, monkeypatch, tmp_path,
+                                           capsys):
+    """One pss_corr_int8 launch (the dongle's u8 bytes), and the table of
+    --load-files on the same bytes."""
+    from chip_smoke import FakeDongle
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.io import rtlsdr
+    from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
+    raw = complex_to_iq_u8(adc_quantize(two_cell_capture()))
+    path = tmp_path / "cap.u8"
+    raw.tofile(path)
+    argv = ["search", "-s", "739e6", "-p", "100"]
+    monkeypatch.setattr(rtlsdr, "load_librtlsdr", lambda: FakeDongle(raw))
+    corr_cuda.reset_launch_counts()
+    assert cli.main(argv) == 0
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_int8": 1}
+    live = capsys.readouterr().out
+    assert cli.main(argv + ["--load-files", str(path)]) == 0
+    assert _table(live) == _table(capsys.readouterr().out)
+    assert [ln.split()[0] for ln in _table(live)[3:]] == ["277", "271"]
+
+
+@pytest.mark.parametrize("cut", [0, 500], ids=["clean", "cut"])
+def test_check_on_the_card_prints_the_cpu_lines(cuda, tmp_path, capsys,
+                                                cut):
+    """`check` correlates in complex64 on the card and on the CPU: the
+    same lines, no kernel launched."""
+    from lte_cell_scanner_tpu_torch import cli
+    from lte_cell_scanner_tpu_torch.utils.itfile import write_itfile
+    cap = two_cell_capture()
+    at = int(0.030 * FS)
+    cap = np.concatenate([cap[:at], cap[at + cut:]])
+    path = str(tmp_path / "cap.it")
+    write_itfile(path, {"capbuf": cap, "fc": np.array([739000000],
+                                                      np.int32)})
+    argv = ["check", path, "-f", "739e6", "--cell-id", "277", "--foff",
+            "35e3"]
+    corr_cuda.reset_launch_counts()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    assert _launched() == {}
+    out = capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == rc == (2 if cut else 0)
+    assert out.splitlines() == capsys.readouterr().out.splitlines()
+
+
+def test_band_debug_exports_from_the_device_peak_search(cuda, tmp_path):
+    """With a dump active, the card's device peak search exports each
+    carrier's maps, sp_incoherent, Z_th1 and peak lists under the names
+    of the host route, in its order, with the CPU run's values."""
+    from lte_cell_scanner_tpu_torch.utils import debug
+    from lte_cell_scanner_tpu_torch.utils.itfile import read_itfile
+    band = [(two_cell_capture(), FC, FC),
+            (two_cell_capture(seed=1), FC + 1e5, FC + 1e5)]
+    f_set = default_f_search_set(FC, 100.0)
+    dumps = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / f"{dev}.it")
+        debug.set_dump(debug.DebugDump(path))
+        try:
+            scan_band(band, f_set, FS, device=dev)
+        finally:
+            debug.set_dump(None)
+        dumps[dev] = read_itfile(path)
+    gpu, cpu = dumps["cuda"], dumps["cpu"]
+    assert list(gpu) == list(cpu)
+    for k in cpu:
+        g, c = np.asarray(gpu[k]), np.asarray(cpu[k])
+        assert g.shape == c.shape, k
+        if k.startswith(("peak_ind", "peak_n_id_2")):
+            np.testing.assert_array_equal(g, c, err_msg=k)
+        elif k.startswith(("sp_incoherent", "Z_th1")):
+            # float32 power sums on the card, float64 on the CPU
+            np.testing.assert_allclose(g, c, rtol=1e-5, err_msg=k)
+        elif k.startswith("xc_incoherent_collapsed_pow"):
+            # bf16 map operands: within one bf16 step of the largest value
+            assert np.abs(g - c).max() <= 2.0 ** -7 * np.abs(c).max(), k
+    # the collapsed frequency index agrees at every exported peak
+    for sfx in ("", "_1"):
+        ind, nid = cpu["peak_ind" + sfx], cpu["peak_n_id_2" + sfx]
+        np.testing.assert_array_equal(
+            np.asarray(gpu["xc_incoherent_collapsed_frq" + sfx])[nid, ind],
+            np.asarray(cpu["xc_incoherent_collapsed_frq" + sfx])[nid, ind])

@@ -179,12 +179,15 @@ def test_cli_track_prints_the_tpu_cli_dashboard(capsys):
 
 
 def test_cli_track_argument_checks(capsys):
-    rc, out = _run(cli.main, ["track", "-f", "739e6", "--device", "cpu"],
-                   capsys)
-    assert rc == 1
-    assert out.startswith("Error: live capture from a dongle is not "
-                          "supported yet; use --sim or --load-files")
-    assert len(out.splitlines()) == 1
+    # no source named: a live dongle, which this machine lacks; the TPU
+    # CLI's Error:, and no fallback to another source
+    with pytest.raises(SystemExit) as got:
+        cli.main(["track", "-f", "739e6", "--device", "cpu"])
+    with pytest.raises(SystemExit) as want:
+        jcli.main(["--platform", "cpu", "track", "-f", "739e6"])
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("Error: ")
+    assert capsys.readouterr().out == ""
     rc, out = _run(cli.main, ["track", "-f", "739e6", "--sim", "-p", "-1",
                               "--device", "cpu"], capsys)
     assert (rc, out) == (1, "Error: ppm value must be positive\n")

@@ -208,6 +208,27 @@ def device_name(device):
     return torch.cuda.get_device_name(dev)
 
 
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them (its first
+    line), for the benches' result lines; the device's name off the
+    card, or when nvidia-smi does not run."""
+    import subprocess
+
+    from lte_cell_scanner_tpu_torch.device import resolve_device
+    name = device_name(device)
+    if name is None or resolve_device(device).type != "cuda":
+        return name
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=30).stdout.strip().splitlines()
+        return out[0] if out else name
+    except (OSError, subprocess.SubprocessError):
+        return name
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", type=int, default=4)
