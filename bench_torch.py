@@ -87,7 +87,7 @@ def scan_rate(capbuf: np.ndarray, f_set: np.ndarray, n_c: int,
     fcs = [FC + 1e5 * c for c in range(n_c)]
     # staging once, as scan_band stages a chunk: templates, fold starts,
     # the route and its operands
-    _cap, tmpl, starts, _nc = plan_carrier_inputs(
+    _cap, tmpl, starts, _nc, _c = plan_carrier_inputs(
         [capbuf] * n_c, fcs, f_set, fcs, FS_WORK)
     route = _plan_scan_bands(tmpl, starts, [capbuf], SearchConfig(), dev)
     from lte_cell_scanner_tpu_torch.device import to_capture

@@ -157,14 +157,44 @@ Phases, each fatal on failure:
      ADC-grid band, front end; float band through MIB) and
      ``bench_front_stages.py``, each JSON line printed with the card's
      name and power limit; the phase's seconds;
- 10. the five map_tc_kernel instances' useful rates against this card's
+ 10. the multi-device layouts on the one card (one-card runs of layouts
+     made for several devices, not multi-card results), launch counts
+     zeroed just before and read just after each run (the counts of
+     10a-10d go into the kernel records as ``multidevice_launches``):
+     10a two ``tools_torch/multihost_worker.py --band scenario`` ranks
+     over gloo on localhost, both on this card (kernels built in phase 2,
+     each rank only loads them; both killed if either fails or outlasts
+     MH_TIMEOUT), scan phase 7's band split 51 + 50 (the CLI's strided
+     split; the short rank pads), float and ADC-grid: both ranks' merged
+     lists equal, equal to phase 7's deduplicated cells (ID, CP, SFN,
+     ports, n_rb, fc exactly, frame_start within 1e-3 samples, pss_pow
+     within 2e-2 relative), the same gathered route verdict (grid flag,
+     v4 kv at margin 1) on both, and one launch of the route's v4 kernel
+     per rank; their carriers_per_s beside phase 7's; 10b ``scan_band``
+     over the device list [cuda:0, cuda:0] on the float band (one v4
+     launch per block, phase 7's cells); 10c ``cell_search`` over a
+     (4 x 1) grid of the card at T = 93 (4 pss_corr_bf16 launches of 93
+     templates on 38400 + 280 samples each) and a (4 x 2) grid over 4
+     hypotheses (8 launches of 6 templates): phase 4's cells; each
+     grid's collapsed map within 1e-5 x max of the one-device front end
+     and its argmax on >= 99.9% of lags, the f32 operands (4
+     pss_corr_f32 launches) within 2e-5 x max of the exact route; the
+     (4 x 1) grid's s_per_carrier beside one device's, in turns; 10d the
+     tracker with its searcher over a (4 x 1) grid on the 400 ms stream
+     of tests/test_tracker.py:485-500 (277 held, n_rb 6, health > 99%,
+     offset register within 50 Hz of +300 Hz); 10e
+     ``tools_torch/bench_kernels.py`` front_lean, sharded_1x1 and
+     sharded_1x1_kernel; each step's seconds with the card's name and
+     power limit;
+ 11. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
      launches are those of phase 5b; each with its ``file_launches`` of
-     phase 4b, its ``tracker_launches`` of phase 9 and its
-     ``tools_launches`` of phase 9b, rows 1-2 with their ``searcher_t3``
-     record), then the result line.
+     phase 4b, its ``tracker_launches`` of phase 9, its
+     ``tools_launches`` of phase 9b and its ``multidevice_launches`` of
+     phase 10, rows 1-2 with their ``searcher_t3`` record), then the
+     result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -1053,8 +1083,8 @@ def band_operands(band, f_set):
     caps = [c for c, _, _ in band[:CHUNK]]
     fcs = [fc for _, fc, _ in band[:CHUNK]]
     t0 = time.perf_counter()
-    cap, tmpl, starts, _n = plan_carrier_inputs(caps, fcs, f_set, fcs,
-                                                FS_WORK)
+    cap, tmpl, starts, _n, _c = plan_carrier_inputs(caps, fcs, f_set, fcs,
+                                                    FS_WORK)
     t1 = time.perf_counter()
     route = _plan_scan_bands(tmpl, starts, caps, SearchConfig(), dev)
     torch.cuda.synchronize()
@@ -1244,6 +1274,7 @@ def run_band_path(label: str, band, f_set, precision: str,
     print(f"{label}: seconds per band by stage (median of 3 more, each "
           f"stage synchronised): " + ", ".join(
               f"{k} {v:.5f}" for k, v in stages.items()))
+    return cell_lists, len(band) / total
 
 
 KAL_FOFF = 31e3            # kalibrate's simulated crystal offset (Hz)
@@ -1930,6 +1961,332 @@ def phase_surface(cap_float, cap_adc) -> dict:
     return counts
 
 
+# phase 10: the multi-device layouts on the one card
+MH_TIMEOUT = 600           # seconds the two ranks of phase 10a may take
+MD_POW_REL = 2e-2          # pss_pow of a multi-device band vs phase 7
+MD_FRAME = 1e-3            # frame_start (samples) of the same
+GRID_MAP_REL = 1e-5        # a grid's collapsed map vs one device, x max
+GRID_F32_REL = 2e-5        # f32 operands vs the exact route, x max
+GRID_ARGMAX = 0.999        # share of lags whose argmax must agree
+GRID_F4 = np.array([-5e3, 0.0, 5e3, 10e3])   # tests/test_sharded.py:28
+
+
+def _band_cell(c) -> dict:
+    """A band cell's compared fields, from a Cell or a worker's record."""
+    if isinstance(c, dict):
+        return c
+    return {"n_id_cell": c.n_id_cell(), "cp": c.cp_type.value,
+            "fc": c.fc_requested, "frame_start": float(c.frame_start),
+            "pss_pow": float(c.pss_pow),
+            "freq_superfine": float(c.freq_superfine),
+            "n_ports": c.n_ports, "n_rb_dl": c.n_rb_dl, "sfn": c.sfn}
+
+
+def expect_band_cells(label: str, got, want) -> None:
+    """Deduplicated band cells against phase 7's single-process ones: ID,
+    CP, SFN, ports, n_rb and fc exactly, frame_start within MD_FRAME
+    samples, pss_pow within MD_POW_REL relative (each chunk's operands
+    come from its own middle carrier, at bf16)."""
+    def order(cells):
+        return sorted((_band_cell(c) for c in cells),
+                      key=lambda c: (c["fc"], c["n_id_cell"]))
+    got, want = order(got), order(want)
+    exact = ("n_id_cell", "cp", "sfn", "n_ports", "n_rb_dl", "fc")
+    if [[g[k] for k in exact] for g in got] != \
+            [[w[k] for k in exact] for w in want]:
+        fail(f"{label}: cells {got} differ from phase 7's {want}")
+    d_frame = max(abs(g["frame_start"] - w["frame_start"])
+                  for g, w in zip(got, want))
+    d_pow = max(abs(g["pss_pow"] - w["pss_pow"]) / w["pss_pow"]
+                for g, w in zip(got, want))
+    print(f"{label}: {len(got)} cells as phase 7's; frame_start within "
+          f"{d_frame:.3e} samples, pss_pow within {d_pow:.3e} relative")
+    if not (d_frame <= MD_FRAME and d_pow <= MD_POW_REL):
+        fail(f"{label}: frame_start {d_frame} or pss_pow {d_pow} beyond "
+             f"{MD_FRAME} / {MD_POW_REL}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_two_ranks(tmp: str) -> list:
+    """Two tools_torch/multihost_worker.py ranks over gloo on this card,
+    on phase 7's band in the CLI's strided split; both are killed if
+    either fails or outlasts MH_TIMEOUT.  Returns their JSON results."""
+    import os
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    port = _free_port()
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tools_torch" / "multihost_worker.py"),
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r), "--out", outs[r], "--device", "cuda",
+         "--band", "scenario"],
+        cwd=str(root), stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    t_end = time.monotonic() + MH_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > t_end:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            fail(f"rank {r} of the two-rank band exited {p.returncode} "
+                 f"(killed after {MH_TIMEOUT} s, or after its peer failed, "
+                 f"when negative):\n{text[-3000:]}")
+    return [json.load(open(o)) for o in outs]
+
+
+def phase_two_ranks(band_cells: dict, band_rates: dict, smi: str,
+                    counts: dict) -> None:
+    """10a: two ranks on the one card."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r0, r1 = run_two_ranks(tmp)
+    print(f"10a: two ranks over gloo on one card, {r0['device']} and "
+          f"{r1['device']}, in {time.perf_counter() - t0:.2f} s wall on "
+          f"{smi} (each made the band in {r0['band_made_s']:.2f} / "
+          f"{r1['band_made_s']:.2f} s)")
+    for name, prec, grid in (("float", "bf16", 0), ("adc", "int8", 1)):
+        a, b = r0[name], r1[name]
+        label = f"10a two-rank {name} band ({a['carriers']} + " \
+            f"{b['carriers']} carriers)"
+        if a["merged"] != b["merged"]:
+            fail(f"{label}: the ranks merged different lists")
+        expect_band_cells(label, a["merged"], band_cells[name])
+        if a["verdicts"] != b["verdicts"] or len(a["verdicts"]) != 1:
+            fail(f"{label}: route verdicts {a['verdicts']} vs "
+                 f"{b['verdicts']}")
+        flags = a["verdicts"][0]
+        print(f"{label}: gathered route verdict {flags} on both ranks")
+        if any(f[0] != grid or f[1] == 0 for f in flags):
+            fail(f"{label}: expected the fused v4 {prec} route on both")
+        kern = f"pss_corr_fold_{prec}"
+        for r, res in enumerate((a, b)):
+            if res["launches"] != {kern: 1}:
+                fail(f"{label}: rank {r} launched {res['launches']}, "
+                     f"expected {kern} once")
+            counts[kern] = counts.get(kern, 0) + 1
+        secs = [statistics.median(res["seconds"]) for res in (a, b)]
+        rate = a["band_carriers"] / max(secs)
+        print(f"{label}: carriers_per_s {rate:.3f} (the slower rank's "
+              f"median band of {len(a['seconds'])}: " + ", ".join(
+                  f"{s:.5f}" for s in secs) + f" s) vs phase 7's one "
+              f"process {band_rates[name]:.3f}, one card ({smi}), a "
+              f"multi-device layout: not a multi-card result")
+
+
+def phase_device_list(band_float, f_set, band_cells: dict, smi: str,
+                      counts: dict) -> None:
+    """10b: one process over the device list [cuda:0, cuda:0]."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import dedup
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel.carriers import (
+        make_carrier_mesh, scan_band)
+    mesh = make_carrier_mesh(devices=["cuda:0", "cuda:0"])
+    label = "10b float band over [cuda:0, cuda:0]"
+    corr_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    lists = scan_band(band_float, f_set, FS_WORK, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = read_launches(label, {"pss_corr_fold_bf16"})
+    if launched["pss_corr_fold_bf16"] != 2:
+        fail(f"{label}: expected one v4 launch per device block")
+    counts["pss_corr_fold_bf16"] = counts.get("pss_corr_fold_bf16", 0) + 2
+    expect_band(lists, band_float, label)
+    expect_band_cells(label, dedup(lists), band_cells["float"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scan_band(band_float, f_set, FS_WORK, mesh=mesh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    print(f"{label}: first run {secs:.3f} s, then " + ", ".join(
+        f"{t:.5f}" for t in times) + f" s: carriers_per_s "
+        f"{len(band_float) / statistics.median(times):.3f} on {smi} (one "
+        f"card, a multi-device layout)")
+
+
+def _grid_maps(label: str, cap, f_set, grid, precision=None):
+    """The grid's collapsed map against the one-device front end on the
+    card (the bf16 map kernel; the exact route for f32 operands)."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.xcorr import xcorr_pss
+    from lte_cell_scanner_tpu_torch.parallel.sharded import (
+        plan_sharded_bands, plan_sharded_inputs, sharded_xcorr)
+    inp = plan_sharded_inputs(cap, f_set, FC, FC, FS_WORK, grid,
+                              dtype=np.complex128)
+    bands = plan_sharded_bands(inp[1], grid, precision or "bf16")
+    pow_g, frq_g = (x.cpu().numpy() for x in sharded_xcorr(
+        grid, inp[0], inp[1], inp[2], 2, inp[3], inp[4], 0, bands))
+    ref = xcorr_pss(cap, f_set, 2, FC, FC, FS_WORK, lean=True,
+                    device="cuda",
+                    corr_backend="exact" if precision == "f32" else "auto")
+    pow_r = ref.xc_incoherent_collapsed_pow
+    err = float(np.max(np.abs(pow_g - pow_r)) / np.max(pow_r))
+    same = float(np.mean(frq_g == ref.xc_incoherent_collapsed_frq))
+    bar = GRID_F32_REL if precision == "f32" else GRID_MAP_REL
+    print(f"{label}: collapsed map within {err:.3e} x max of the "
+          f"one-device front end (bar {bar:g}), argmax equal on "
+          f"{100 * same:.3f}% of lags")
+    if not (err <= bar and same >= GRID_ARGMAX):
+        fail(f"{label}: the grid's map disagrees with one device")
+
+
+def _expect_like(label: str, cells, want) -> None:
+    key = sorted((c.n_id_cell(), c.n_id_1, c.cp_type, c.sfn, c.n_ports,
+                  c.n_rb_dl) for c in cells)
+    ref = sorted((c.n_id_cell(), c.n_id_1, c.cp_type, c.sfn, c.n_ports,
+                  c.n_rb_dl) for c in want)
+    if key != ref:
+        fail(f"{label}: cells {cells} differ from phase 4's {want}")
+
+
+def phase_grids(cap_float, f_set, float_cells, smi: str,
+                counts: dict) -> None:
+    """10c: the (t x f) front end at full width."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models.search import cell_search
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel.sharded import make_mesh
+    grid41 = make_mesh(4, 1, ["cuda:0"] * 4)
+    grid42 = make_mesh(4, 2, ["cuda:0"] * 8)
+    f4 = GRID_F4 + 35e3        # about the two-cell capture's offset
+    for label, grid, fs, n in (
+            ("10c cell_search over a (4 x 1) grid, T = 93", grid41, f_set,
+             4),
+            ("10c cell_search over a (4 x 2) grid, T = 12", grid42, f4, 8)):
+        corr_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        cells = cell_search(cap_float, fs, FC, FC, FS_WORK, mesh=grid)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read_launches(label, {"pss_corr_bf16"})
+        if launched["pss_corr_bf16"] != n:
+            fail(f"{label}: expected {n} launches, one per device")
+        counts["pss_corr_bf16"] = counts.get("pss_corr_bf16", 0) + n
+        expect_cells(cells, label)
+        _expect_like(label, cells, float_cells)
+        print(f"{label}: {secs:.3f} s (first run) on {smi}")
+    _grid_maps("10c (4 x 1) grid, T = 93", cap_float, f_set, grid41)
+    _grid_maps("10c (4 x 2) grid, 4 hypotheses", cap_float, f4, grid42)
+    corr_cuda.reset_launch_counts()
+    _grid_maps("10c (4 x 1) grid, f32 operands", cap_float, f_set, grid41,
+               "f32")
+    launched = read_launches("10c f32 operands", {"pss_corr_f32"})
+    if launched["pss_corr_f32"] != 4:
+        fail("10c f32 operands: expected 4 pss_corr_f32 launches")
+    counts["pss_corr_f32"] = counts.get("pss_corr_f32", 0) + 4
+
+    # s_per_carrier, one device and the (4 x 1) grid in turns
+    runs = {"one device": lambda: cell_search(cap_float, f_set, FC, FC,
+                                              FS_WORK, device="cuda"),
+            "(4 x 1) grid": lambda: cell_search(cap_float, f_set, FC, FC,
+                                                FS_WORK, mesh=grid41)}
+    times = {k: [] for k in runs}
+    for k in list(runs) * 6:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[k]()
+        torch.cuda.synchronize()
+        times[k].append(time.perf_counter() - t0)
+    print("10c s_per_carrier (median of 5 after a warm-up, in turns) on "
+          f"{smi}, one card: " + "; ".join(
+              f"{k} {statistics.median(v[1:]):.5f}" for k, v in
+              times.items()) + " (the grid is a multi-device layout on one "
+          "card, not a multi-card result)")
+
+
+def phase_tracker_grid(smi: str, counts: dict) -> None:
+    """10d: the tracker with its searcher's front end over a (4 x 1)
+    grid, on the stream of tests/test_tracker.py:485-500 (CELL_PLAN's
+    first cell: 277, +300 Hz, 5 dB, 400 ms)."""
+    from lte_cell_scanner_tpu_torch.cell import CpType
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel.sharded import make_mesh
+    from lte_cell_scanner_tpu_torch.sim import (apply_freq_offset, awgn,
+                                                create_dl_sig)
+    from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
+    rng = np.random.default_rng(11)
+    sig = create_dl_sig(CpType.NORMAL, 400, 0, 92, 1, 0.4, rng=rng,
+                        n_ports=2, sfn=4)
+    sig = awgn(apply_freq_offset(sig, 300.0), 5.0, rng=rng)
+    label = "10d tracker, searcher over a (4 x 1) grid"
+    corr_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = TrackerRunner(FC, FC, FS_WORK, device="cuda",
+                      search_mesh=make_mesh(4, 1, ["cuda:0"] * 4))
+    for i in range(0, len(sig), 10000):
+        r.process_block(sig[i: i + 10000])
+    r.close()
+    secs = time.perf_counter() - t0
+    launched = read_launches(label, {"pss_corr_bf16"})
+    if launched["pss_corr_bf16"] % 4:
+        fail(f"{label}: searches did not launch once per time block")
+    counts["pss_corr_bf16"] = counts.get("pss_corr_bf16", 0) \
+        + launched["pss_corr_bf16"]
+    ids = [c.n_id_cell for c in r.cells]
+    fo = r.state.frequency_offset
+    print(f"{label}: tracked {ids}, offset register {fo:.3f} Hz; " + "; ".join(
+        f"cell {c.n_id_cell} n_rb {c.n_rb_dl} health {c.health_pct():.1f}%"
+        for c in r.cells) + f"; {secs:.2f} s for 0.4 s of stream on {smi}")
+    if ids != [277] or r.cells[0].n_rb_dl != 6 \
+            or not r.cells[0].health_pct() > 99.0 or abs(fo - 300.0) > 50.0:
+        fail(f"{label}: the cell was not held")
+
+
+def phase_multidevice(cap_float, f_set, float_cells, band_float,
+                      band_cells: dict, band_rates: dict, smi: str) -> dict:
+    """Phase 10; returns its launch counts (10a-10d)."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from tools_torch import bench_kernels
+    t_phase = time.perf_counter()
+    counts = {}
+    steps = (("10a", lambda: phase_two_ranks(band_cells, band_rates, smi,
+                                             counts)),
+             ("10b", lambda: phase_device_list(band_float, f_set,
+                                               band_cells, smi, counts)),
+             ("10c", lambda: phase_grids(cap_float, f_set, float_cells, smi,
+                                         counts)),
+             ("10d", lambda: phase_tracker_grid(smi, counts)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        step()
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s on {smi}")
+    t0 = time.perf_counter()
+    corr_cuda.reset_launch_counts()
+    run_tool("10e bench_kernels sharded_1x1", bench_kernels.main, [
+        "--variants", "front_lean,sharded_1x1,sharded_1x1_kernel",
+        "--repeats", BENCH_REPEATS])
+    read_launches("10e bench_kernels sharded_1x1", {"pss_corr_bf16"})
+    print(f"phase 10e: {time.perf_counter() - t0:.2f} s on {smi}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{counts} (one card: multi-device layouts, not a multi-card "
+          f"result)")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -2008,14 +2365,22 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
-    run_band_path("float band", band_float, f_set, "bf16", counts)
-    run_band_path("ADC-grid band", band_adc, f_set, "int8", counts)
+    from lte_cell_scanner_tpu_torch.models.search import dedup
+    band_cells, band_rates = {}, {}
+    for name, label, band, precision in (
+            ("float", "float band", band_float, "bf16"),
+            ("adc", "ADC-grid band", band_adc, "int8")):
+        lists, band_rates[name] = run_band_path(label, band, f_set,
+                                                precision, counts)
+        band_cells[name] = dedup(lists)
     phase_profile("scan_band (float band)", lambda: scan_band(
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
     tracker_counts = phase_tracker(cap_float, cap_adc, records, smi)
     tools_counts = phase_surface(cap_float, cap_adc)
+    md_counts = phase_multidevice(cap_float, f_set, float_cells, band_float,
+                                  band_cells, band_rates, smi)
 
     # each map_tc_kernel instance against its ruler of phase 5b
     for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
@@ -2043,6 +2408,7 @@ def main() -> int:
         rec["file_launches"] = file_counts.get(rec["name"], 0)
         rec["tracker_launches"] = tracker_counts.get(rec["name"], 0)
         rec["tools_launches"] = tools_counts.get(rec["name"], 0)
+        rec["multidevice_launches"] = md_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -106,14 +106,86 @@ def _make_source(args):
                       repeat=args.repeat, noise_power=args.noise_power)
 
 
-def cmd_search(args) -> int:
+def _time_grid(flag: Optional[bool], name: str, devices):
+    """A (n x 1) grid over the n visible devices for the hypothesis
+    sweep's front end, decided as the TPU CLI decides it: by default
+    when there are several; a flag asked for with one device visible
+    warns and runs on that device."""
+    on = flag
+    if on is None:
+        on = len(devices) > 1
+    elif on and len(devices) == 1:
+        print(f"Warning: {name} requested but only one device is visible; "
+              f"running single-device")
+        on = False
+    if not (on and len(devices) > 1):
+        return None
+    from .parallel.sharded import make_mesh
+    return make_mesh(len(devices), 1, devices)
+
+
+def _search_multihost(args, fc_search_set, f_search_set, cfg,
+                      capture) -> int:
+    """The band over several processes (parallel/multihost.py): join
+    the group, capture this process's strided slice of the band, scan
+    it, gather and deduplicate every process's cells; rank 0 prints the
+    table."""
+    import torch
+
     from .constants import FS_WORK
     from .device import resolve_device
+    from .parallel import multihost
+    from .utils.debug import profile_report
+    # decided the same on every process from the band alone, BEFORE
+    # joining: a check after joining would leave the peers waiting in
+    # the first collective
+    if len(fc_search_set) < args.num_processes:
+        print(f"Error: band has fewer carriers "
+              f"({len(fc_search_set)}) than processes "
+              f"({args.num_processes}); some process would own none")
+        return 1
+    if resolve_device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        print("Error: no CUDA device (each process runs on a card; "
+              "--device cpu runs it on the host)")
+        return 1
+    multihost.initialize(args.coordinator, args.num_processes,
+                         args.process_id)
+    try:
+        captures = []
+        # this process's real carriers, each numbered by its band index
+        # so that -l replays (and -r writes) the right capbuf_XXXX.it
+        # files on a shared data dir; scan_band_multihost pads unequal
+        # slices itself
+        for k, fc in enumerate(fc_search_set[args.process_id::
+                                             args.num_processes]):
+            fc = float(fc)
+            band_idx = args.process_id + k * args.num_processes
+            if args.verbose:
+                print(f"[proc {args.process_id}] capturing "
+                      f"{fc / 1e6:.4g} MHz (band index {band_idx}) ...")
+            capbuf, fc_programmed = capture(fc, index=band_idx)
+            captures.append((capbuf, fc, fc_programmed))
+        _local, merged = multihost.scan_band_multihost(
+            captures, f_search_set, FS_WORK, cfg, device=args.device)
+    finally:
+        multihost.finalize()
+    if args.process_id == 0:
+        _print_cells(merged, args.correction)
+        if args.profile:
+            print()
+            print(profile_report())
+    return 0
+
+
+def cmd_search(args) -> int:
+    from .constants import FS_WORK
+    from .device import resolve_device, visible_devices
     from .interop import _BACKENDS
     from .io.capture import CaptureSession
     from .models.search import (SearchConfig, cell_search, dedup,
                                 default_f_search_set)
-    from .parallel.carriers import scan_band
+    from .parallel.carriers import make_carrier_mesh, scan_band
     from .utils.debug import enable_profiling, profile_report
     if args.brief:
         args.verbose = 0
@@ -161,20 +233,25 @@ def cmd_search(args) -> int:
                        thresh2_n_sigma=float(args.thresh2_sigma),
                        decode=not args.no_decode,
                        corr_backend=_BACKENDS[args.corr_backend])
+    session = CaptureSession(args.data_dir)
+
+    def capture(fc: float, index: Optional[int] = None):
+        # replayed and synthetic captures are taken at the requested
+        # frequency: no tuner model
+        return session.capture_data(fc, source, save_cap=args.record,
+                                    use_recorded_data=args.load,
+                                    tuner="none", index=index)
+
+    if args.coordinator:
+        return _search_multihost(args, fc_search_set, f_search_set, cfg,
+                                 capture)
+
+    devices = visible_devices(dev)
     shard_carriers = args.shard_carriers
     if shard_carriers is None:
         # the whole band as one batched scan on the card; the serial loop
         # is the CPU's
         shard_carriers = len(fc_search_set) > 1 and dev.type == "cuda"
-
-    session = CaptureSession(args.data_dir)
-
-    def capture(fc: float):
-        # replayed and synthetic captures are taken at the requested
-        # frequency: no tuner model
-        return session.capture_data(fc, source, save_cap=args.record,
-                                    use_recorded_data=args.load,
-                                    tuner="none")
 
     all_cells = []
     if shard_carriers:
@@ -188,19 +265,27 @@ def cmd_search(args) -> int:
             print(f"Scanning {len(captures)} carriers, "
                   f"{fc_search_set[0] / 1e6:.4g}-{fc_search_set[-1] / 1e6:.4g}"
                   f" MHz ...")
+        # several visible devices: each takes a block of every chunk
+        mesh = make_carrier_mesh(devices=devices) if len(devices) > 1 \
+            else None
         all_cells = scan_band(captures, f_search_set, FS_WORK, cfg,
-                              device=dev)
+                              device=None if mesh else dev, mesh=mesh)
         for cells in all_cells:
             for c in cells:
                 if args.verbose:
                     print(f"  Detected a cell! {c}")
     else:
+        # single carrier (or serial scan) with several devices: the
+        # hypothesis sweep's front end over a (t x 1) grid of time blocks
+        mesh = _time_grid(args.shard_hypotheses, "--shard-hypotheses",
+                          devices)
         for fc in fc_search_set:
             if args.verbose:
                 print(f"Examining center frequency {fc / 1e6:.4g} MHz ...")
             capbuf, fc_programmed = capture(float(fc))
             cells = cell_search(capbuf, f_search_set, float(fc),
-                                fc_programmed, FS_WORK, cfg, device=dev)
+                                fc_programmed, FS_WORK, cfg,
+                                device=None if mesh else dev, mesh=mesh)
             for c in cells:
                 if args.verbose:
                     print(f"  Detected a cell! {c}")
@@ -216,7 +301,7 @@ def cmd_track(args) -> int:
     import torch
 
     from .constants import FS_WORK
-    from .device import resolve_device
+    from .device import resolve_device, visible_devices
     from .interop import _BACKENDS
     from .models.search import SearchConfig
     from .tracker import TrackerRunner
@@ -238,11 +323,10 @@ def cmd_track(args) -> int:
         return 1
     args.live = not (args.sim or args.load_files)
     source = _make_source(args)
-    if args.shard_search:
-        # the multi-device searcher is not ported: one device, as the
-        # reference package does when one device is visible
-        print("Warning: --shard-search requested but only one device is "
-              "visible; running single-device")
+    # the background searcher's front end over a (n x 1) grid of the
+    # visible devices: by default when there are several
+    mesh = _time_grid(args.shard_search, "--shard-search",
+                      visible_devices(dev))
 
     # kalibrate bootstrap (reference LTE-Tracker.cpp:565-741): run a
     # full +-ppm cell search on one capture and seed the dongle FO
@@ -276,7 +360,7 @@ def cmd_track(args) -> int:
                            debug_knobs=tuple(
                                getattr(args, f"g{i}") for i in
                                range(1, 10)),
-                           device=dev)
+                           device=dev, search_mesh=mesh)
     if not args.no_warmup:
         if args.verbose:
             print("Compiling the search/decode path (one-time warmup) ...")
@@ -430,8 +514,9 @@ def _add_track_parser(sub) -> None:
                          "feeds faster than realtime")
     pt.add_argument("--shard-search", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="run the background searcher over several "
-                         "devices (not ported: warns and runs on one)")
+                    help="run the background searcher's front end over "
+                         "all visible devices (overlap-save time blocks; "
+                         "default: on when more than one is visible)")
     pt.add_argument("-p", "--ppm", type=float, default=120.0,
                     help="crystal-error window for the kalibrate "
                          "bootstrap search")
@@ -536,11 +621,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="correlation backend: auto = the CUDA kernels on "
                          "the card, the exact correlation elsewhere; "
                          "kernel (or pallas) / exact (or xla) force either")
+    ps.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of process 0: scan the band over "
+                         "several processes (torch.distributed, gloo; "
+                         "every process runs the same command with its "
+                         "own --process-id)")
+    ps.add_argument("--num-processes", type=int, default=1)
+    ps.add_argument("--process-id", type=int, default=0)
     ps.add_argument("--shard-carriers", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="scan a band as one batched scan_band "
-                         "(default: on the card; --no-shard-carriers "
-                         "forces the serial per-carrier loop)")
+                    help="scan a band as one batched scan_band, over every "
+                         "visible card when there are several (default: "
+                         "on the card; --no-shard-carriers forces the "
+                         "serial per-carrier loop)")
+    ps.add_argument("--shard-hypotheses",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="run a single-carrier (or serial) scan's front "
+                         "end over a time-block grid of all visible "
+                         "devices (default: on when more than one is "
+                         "visible; --no-shard-hypotheses forces one)")
     ps.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
     ps.set_defaults(func=cmd_search)

@@ -16,6 +16,8 @@ it nothing that the host's own spread does not hide (PERF.md §6).
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
@@ -23,6 +25,30 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the card; anything else as torch reads it."""
     return torch.device("cuda" if device is None else device)
+
+
+def visible_devices(device=None) -> List[torch.device]:
+    """The devices a multi-device layout of ``device``'s type may take
+    (None = the card): every visible card for CUDA, the one host device
+    otherwise."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def pick_devices(n: int, devices=None, what: str = "layout"
+                 ) -> List[torch.device]:
+    """The first ``n`` of ``devices`` (None = every visible card) as
+    ``torch.device``s; a list may repeat a device.  Raises when there are
+    fewer than ``n``: a layout never shrinks to the devices it finds."""
+    devs = visible_devices() if devices is None \
+        else [torch.device(d) for d in devices]
+    if n < 1 or len(devs) < n:
+        raise ValueError(f"the {what} needs {n} devices, "
+                         f"{len(devs)} given or visible")
+    return devs[:n]
 
 
 def complex_dtype(device: torch.device) -> torch.dtype:

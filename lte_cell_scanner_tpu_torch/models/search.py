@@ -27,7 +27,7 @@ from .peaks import PEAK_CAP, cells_from_peak_records, peak_search
 from .rs import RsDl
 from .sss_detect import pss_sss_foe, sss_detect, sss_foe_batch_fused
 from .tfg import extract_tfg, tfoec
-from .xcorr import xcorr_pss, xcorr_pss_peaks
+from .xcorr import use_kernel_corr, xcorr_pss, xcorr_pss_peaks
 
 log = logging.getLogger(__name__)
 
@@ -163,9 +163,13 @@ def decode_back_half(cell: Cell, cap_t: torch.Tensor, fc_requested: float,
 def cell_search(capbuf, f_search_set, fc_requested: float,
                 fc_programmed: float, fs_programmed: float,
                 config: Optional[SearchConfig] = None, device=None,
-                timings: Optional[Dict[str, float]] = None) -> List[Cell]:
+                timings: Optional[Dict[str, float]] = None,
+                mesh=None) -> List[Cell]:
     """Search one carrier: detect, refine, and (optionally) decode cells.
 
+    mesh: a (t x f) grid of devices (``parallel/sharded.py::make_mesh``;
+    then no ``device``): the front end runs over the grid
+    (``cell_search_sharded``).
     device: where the search runs (None = the card).  On CUDA the
     threshold and greedy peak search run on the device after the front
     end and only the peak records come back; on the CPU, and whenever a
@@ -176,6 +180,13 @@ def cell_search(capbuf, f_search_set, fc_requested: float,
     the device or the host; sss_foe_fused, decode_fused; the other stages
     of refine_peaks where the config takes them); ``--profile``
     (utils/debug.py::enable_profiling) records the same stages."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("cell_search: give a device or a mesh, not "
+                             "both")
+        return cell_search_sharded(capbuf, f_search_set, fc_requested,
+                                   fc_programmed, fs_programmed, mesh,
+                                   config, timings)
     cfg = config or SearchConfig()
     dev = resolve_device(device)
     capbuf = np.asarray(capbuf)
@@ -205,28 +216,79 @@ def cell_search(capbuf, f_search_set, fc_requested: float,
                         fc_requested, fc_programmed, fs_programmed,
                         lean=True, corr_backend=cfg.corr_backend,
                         device=dev, cap_t=cap_t)
-    Z_th1 = compute_z_th1(res.sp_incoherent, res.n_comb_xc,
-                          cfg.ds_comb_arm, cfg.thresh1_n_nines)
+    return _host_peaks_then_refine(
+        res.xc_incoherent_collapsed_pow, res.xc_incoherent_collapsed_frq,
+        res.sp_incoherent, res.xc_incoherent_single, res.n_comb_xc,
+        f_search_set, fc_requested, fc_programmed, fs_programmed, cap_t,
+        cfg, dev, timings, refine_slab=res.refine_slab)
+
+
+def _host_peaks_then_refine(pow_map, frq_map, sp_incoherent, single,
+                            n_comb_xc, f_search_set, fc_requested,
+                            fc_programmed, fs_programmed, cap_t, cfg, dev,
+                            timings, refine_slab=None) -> List[Cell]:
+    """The rest of a search after a front end whose maps are on the
+    host: Z_th1, the host peak search, the debug exports, then the back
+    half (refine_peaks) on ``cap_t``'s device."""
+    Z_th1 = compute_z_th1(sp_incoherent, n_comb_xc, cfg.ds_comb_arm,
+                          cfg.thresh1_n_nines)
     with stage("peak_search", dev, timings):
-        peaks = peak_search(res.xc_incoherent_collapsed_pow,
-                            res.xc_incoherent_collapsed_frq,
-                            Z_th1, f_search_set, fc_requested,
-                            fc_programmed, res.xc_incoherent_single,
-                            cfg.ds_comb_arm, refine_slab=res.refine_slab)
+        peaks = peak_search(pow_map, frq_map, Z_th1, f_search_set,
+                            fc_requested, fc_programmed, single,
+                            cfg.ds_comb_arm, refine_slab=refine_slab)
     # intermediate-array tracing for offline diffing (the reference's
     # ITPP_DEBUG_EXPORT convention, macros.h:55-72); no-op unless a dump
     # is active
-    debug_export("xc_incoherent_collapsed_pow",
-                 res.xc_incoherent_collapsed_pow)
-    debug_export("xc_incoherent_collapsed_frq",
-                 res.xc_incoherent_collapsed_frq)
-    debug_export("sp_incoherent", res.sp_incoherent)
+    debug_export("xc_incoherent_collapsed_pow", pow_map)
+    debug_export("xc_incoherent_collapsed_frq", frq_map)
+    debug_export("sp_incoherent", sp_incoherent)
     debug_export("Z_th1", Z_th1)
     if peaks:
         debug_export("peak_ind", np.array([p.ind for p in peaks]))
         debug_export("peak_n_id_2", np.array([p.n_id_2 for p in peaks]))
     return refine_peaks(peaks, cap_t, fc_requested, fc_programmed,
                         fs_programmed, cfg, timings)
+
+
+def cell_search_sharded(capbuf, f_search_set, fc_requested: float,
+                        fc_programmed: float, fs_programmed: float,
+                        mesh, config: Optional[SearchConfig] = None,
+                        timings: Optional[Dict[str, float]] = None
+                        ) -> List[Cell]:
+    """cell_search with the front end over a (t x f) grid of devices
+    (``parallel/sharded.py``): time blocks with overlap-save halos,
+    template columns collapsed on the grid's first device, and the
+    sp_incoherent and pre-delay-spread fold that Z_th1 and the
+    refinement need from the same pass.  The host peak search, the debug
+    exports and the back half (on the grid's first device) follow as in
+    cell_search (``_host_peaks_then_refine``).  The correlation backend is chosen for the first device:
+    the bf16 map kernel per device on CUDA (for ADC-grid captures too, as
+    the TPU package's sharded front end takes bf16 bands), the exact
+    correlation on the CPU.
+
+    The tracker's searcher takes this path with a search grid, and so
+    does a single-carrier search over several cards."""
+    from ..parallel.sharded import (plan_sharded_bands, plan_sharded_inputs,
+                                    sharded_xcorr)
+
+    cfg = config or SearchConfig()
+    capbuf = np.asarray(capbuf)
+    f_search_set = np.asarray(f_search_set, dtype=np.float64)
+    dev = mesh.first
+    n_comb_sp = (len(capbuf) - 136 - 137) // 9600
+    with stage("xcorr_pss", dev, timings):
+        padded, tmpl, starts, n_comb_xc, n_lags = plan_sharded_inputs(
+            capbuf, f_search_set, fc_requested, fc_programmed,
+            fs_programmed, mesh, dtype=np.complex128)
+        bands = plan_sharded_bands(tmpl, mesh) \
+            if use_kernel_corr(cfg.corr_backend, dev) else ()
+        outs = sharded_xcorr(mesh, padded, tmpl, starts, cfg.ds_comb_arm,
+                             n_comb_xc, n_lags, n_comb_sp, bands)
+        pow_g, frq_g, sp_inc, single = (x.cpu().numpy() for x in outs)
+    return _host_peaks_then_refine(
+        pow_g, frq_g, sp_inc, single, n_comb_xc, f_search_set, fc_requested,
+        fc_programmed, fs_programmed, to_capture(capbuf, dev), cfg, dev,
+        timings)
 
 
 def _true_freq(c: Cell) -> float:

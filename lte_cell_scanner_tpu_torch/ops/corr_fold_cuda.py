@@ -90,20 +90,23 @@ def delta_table(start_idx: np.ndarray) -> np.ndarray:
     return start_idx.astype(np.int64) - HALF_FRAME_LEN * m[None, :]
 
 
-def v4_applicable(start_idx, kv: int = KV_V2) -> bool:
+def v4_applicable(start_idx, kv: int = KV_V2, margin: int = 0) -> bool:
     """True when every fold deviation fits the delta window of a K = kv
-    row span."""
+    row span, shrunk by ``margin`` samples at each end (the multi-process
+    band gates at margin 1, so that ranks whose middle carriers differ
+    cannot disagree near the window's edge)."""
     b = v4_back_shift(kv)
     d = delta_table(start_idx)
-    return bool(d.min() >= -b
-                and d.max() <= (kv - (W_V4 - 1) - PSS_TD_LEN) - b)
+    return bool(d.min() >= -b + margin
+                and d.max() <= (kv - (W_V4 - 1) - PSS_TD_LEN) - b - margin)
 
 
-def v4_kv_for(start_idx):
-    """The narrowest row window whose delta window admits this fold-start
-    table (256, then 384), or None: the v2 route."""
+def v4_kv_for(start_idx, margin: int = 0):
+    """The narrowest row window whose delta window, shrunk by
+    ``margin``, admits this fold-start table (256, then 384), or None:
+    the v2 route."""
     for kv in (KV_V2, KV_V4_WIDE):
-        if v4_applicable(start_idx, kv=kv):
+        if v4_applicable(start_idx, kv=kv, margin=margin):
             return kv
     return None
 

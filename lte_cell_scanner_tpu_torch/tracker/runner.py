@@ -81,7 +81,7 @@ class TrackerRunner:
                  search_period: float = 0.0, search_async: bool = False,
                  search_duty: float = 0.5, parallel_cells: int = 0,
                  debug_knobs: tuple = (), device_loop: Optional[bool] = None,
-                 device=None):
+                 device=None, search_mesh=None):
         self.device = resolve_device(device)
         g = tuple(debug_knobs) + (0.0,) * (9 - len(debug_knobs))
         self.state = GlobalState(fc_requested=fc_requested,
@@ -112,6 +112,11 @@ class TrackerRunner:
         self.search_duty = search_duty
         self._samples_fed = 0
         self._last_search_at = None
+        # optional (t x 1) grid of devices (parallel/sharded.py::
+        # make_mesh): the searcher's front end runs over it in
+        # overlap-save time blocks, its back half on the grid's first
+        # device; the tick stays on ``device``
+        self.search_mesh = search_mesh
         # Concurrent background search (the reference's dedicated
         # searcher thread at nice+20, searcher_thread.cpp:66): one
         # worker thread at nice+19 runs search_once on a capbuf
@@ -150,6 +155,13 @@ class TrackerRunner:
             return bool(self.device_loop)
         return self.device.type == "cuda"
 
+    def _search_place(self) -> dict:
+        """Where the searches run: over the search grid when there is
+        one, else on the runner's device."""
+        if self.search_mesh is not None:
+            return {"mesh": self.search_mesh}
+        return {"device": self.device}
+
     def _add_time(self, key: str, t0: float) -> float:
         t1 = time.perf_counter()
         if self.timings is not None:
@@ -181,7 +193,7 @@ class TrackerRunner:
             f_set = np.array([self.state.frequency_offset])
             cell_search(capbuf, f_set, self.state.fc_requested,
                         self.state.fc_programmed, self.state.fs_programmed,
-                        self.search_config, device=self.device)
+                        self.search_config, **self._search_place())
 
     # ------------------------------------------------------------------
     def add_cell(self, tc: TrackedCell) -> None:
@@ -294,7 +306,7 @@ class TrackerRunner:
                     new_cells = search_once(
                         self.producer.capbuf, self.producer.capbuf_late,
                         self.state, self.cells, self.search_config,
-                        device=self.device)
+                        **self._search_place())
                     self._integrate_search(new_cells, had_cells)
                     self._add_time("search", t0)
             elif (self.producer.capture_idle()
@@ -330,7 +342,7 @@ class TrackerRunner:
         with ctx:
             new_cells = search_once(capbuf, capbuf_late, self.state,
                                     self.cells, self.search_config,
-                                    device=self.device)
+                                    **self._search_place())
         return new_cells, had_cells
 
     def _integrate_search(self, new_cells: List[TrackedCell],

@@ -23,9 +23,12 @@ from .state import GlobalState, TrackedCell
 
 def search_once(capbuf: np.ndarray, capbuf_late: float, state: GlobalState,
                 tracked: List[TrackedCell],
-                config: SearchConfig = None, device=None
+                config: SearchConfig = None, device=None, mesh=None
                 ) -> List[TrackedCell]:
-    """One searcher cycle on ``device`` (None = the card); returns
+    """One searcher cycle on ``device`` (None = the card), or with its
+    front end over ``mesh``, a (t x 1) grid of devices
+    (``parallel/sharded.py``: the capture's time axis in overlap-save
+    blocks; ``models/search.py::cell_search_sharded``); returns
     newly-found cells to track.  The one hypothesis makes T = 3
     correlation templates."""
     t0 = time.perf_counter()
@@ -41,7 +44,8 @@ def search_once(capbuf: np.ndarray, capbuf_late: float, state: GlobalState,
 
     cells = cell_search(capbuf, f_search_set, state.fc_requested,
                         state.fc_programmed, state.fs_programmed, cfg,
-                        device=device)
+                        device=None if mesh is not None else device,
+                        mesh=mesh)
 
     new_cells = []
     for cell in cells:

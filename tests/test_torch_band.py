@@ -70,7 +70,8 @@ def _key(c):
 
 def test_front_batch_matches_single_carrier_xcorr(band):
     caps = [c for c, _, _ in band]
-    cap, tmpl, starts, _n = tc.plan_carrier_inputs(caps, FCS, F_SET, FCS, FS)
+    cap, tmpl, starts, _n, _c = tc.plan_carrier_inputs(caps, FCS, F_SET, FCS,
+                                                       FS)
     slab, pow_c, frq_c, sp_inc = tc._front_batch(
         torch.from_numpy(cap), tmpl, starts, tc.BandRoute(None), 2)
     for i, (c, fc, _) in enumerate(band):
@@ -123,8 +124,8 @@ def test_kernel_front_end_matches_tpu_package(band, adc, fused):
     route in interpret mode.  The collapsed power within 0.2% of its max
     and no argmax flip (the bar of tests/test_xcorr.py:125-131)."""
     caps = [adc_quantize(c) if adc else c for c, _, _ in band]
-    cap, tmpl, starts, n_comb = tc.plan_carrier_inputs(caps, FCS, F_SET, FCS,
-                                                       FS)
+    cap, tmpl, starts, n_comb, _c = tc.plan_carrier_inputs(caps, FCS, F_SET,
+                                                           FCS, FS)
     route = tc._plan_scan_bands(tmpl, starts, caps,
                                 _port_cfg(corr_backend="pallas"), CPU)
     assert route.mid_starts is not None

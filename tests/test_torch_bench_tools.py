@@ -61,9 +61,11 @@ def test_bench_kernels_parity_holds_its_bars(capsys):
     assert 0 < res["v1_bf16_maxerr"] < 2e-2
 
 
-@pytest.mark.parametrize("tool,variant", [(bench_corr_v2, "v4_128_16"),
-                                          (bench_corr_v2, "v2_128"),
-                                          (bench_kernels, "sharded_1x1")])
+@pytest.mark.parametrize("tool,variant", [
+    (bench_corr_v2, "v4_128_16"), (bench_corr_v2, "v2_128"),
+    # sharded_1x1 is a variant now; a (2 x 2) grid is none
+    pytest.param(bench_kernels, "sharded_2x2",
+                 id="tools_torch.bench_kernels-sharded_1x1")])
 def test_unknown_variant_raises(tool, variant):
     with pytest.raises(ValueError):
         tool.main(TINY + ["--variants", variant])

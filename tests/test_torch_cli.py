@@ -175,3 +175,149 @@ def test_bench_torch_on_the_cpu_prints_its_keys(capture_files, capsys):
     assert fc["valid"] and fc["cell_ids"] == [271, 277]
     assert set(fc["stages_ms"]) == {"xcorr_pss", "peak_search",
                                     "sss_foe_fused", "decode_fused"}
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_two_process_band_prints_the_one_process_table(tmp_path, capsys):
+    """A two-carrier band recorded by one process, then replayed by two
+    ranks over gloo (``--coordinator``, each loading the capbuf_XXXX.it
+    files of its band indices): rank 0 prints the one-process table,
+    rank 1 no table."""
+    import os
+    import subprocess
+    import sys
+
+    band = ["search", "-s", "739e6", "-e", "739.1e6", "-p", "5", "-d",
+            str(tmp_path), "--device", "cpu"]
+    rc, rec, _ = _run(cli.main, band + ["--sim", "--sim-foff", "1200", "-r"],
+                      capsys)
+    assert rc == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["capbuf_0000.it", "capbuf_0001.it"]
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "lte_cell_scanner_tpu_torch.cli"] + band
+        + ["-l", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+           "2", "--process-id", str(pid)],
+        env=dict(os.environ, OMP_NUM_THREADS="2"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert _table(outs[0]) == _table(rec)
+    assert _table(rec)[3].startswith("277 2 ")
+    assert "[proc 1] capturing 739.1 MHz (band index 1)" in outs[1]
+    assert "Detected the following cells" not in outs[1]
+
+
+def test_fewer_carriers_than_processes_exits_before_joining(capsys):
+    """Checked on the band alone before joining the group (nothing
+    listens at the coordinator's port), with the TPU CLI's message."""
+    argv = ["search", "-s", "739e6", "--sim", "--coordinator",
+            "127.0.0.1:1", "--num-processes", "2", "--process-id", "1"]
+    rc, out, _ = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    jrc, jout, _ = _run(jcli.main, ["--platform", "cpu"] + argv, capsys)
+    assert rc == jrc == 1
+    assert out == jout == ("Error: band has fewer carriers (1) than "
+                           "processes (2); some process would own none\n")
+
+
+WARN = ("Warning: {} requested but only one device is visible; running "
+        "single-device")
+SEARCH = ["search", "-s", "739e6", "--sim", "-p", "5", "--sim-foff", "1200"]
+TRACK = ["track", "-f", "739e6", "--sim", "--no-kalibrate", "--no-warmup",
+         "--duration", "0.01", "--no-tui"]
+
+
+@pytest.mark.parametrize("argv,flag", [(SEARCH, "--shard-hypotheses"),
+                                       (TRACK, "--shard-search")],
+                         ids=["search", "track"])
+def test_one_visible_device_warns_as_the_tpu_cli(argv, flag, capsys,
+                                                 monkeypatch):
+    import jax
+    rc, out, _ = _run(cli.main, argv + [flag, "--device", "cpu"], capsys)
+    # the TPU CLI with one device visible
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    jrc, jout, _ = _run(jcli.main, ["--platform", "cpu"] + argv + [flag],
+                        capsys)
+    assert rc == jrc == 0
+    assert out.splitlines()[0] == jout.splitlines()[0] == WARN.format(flag)
+
+
+@pytest.mark.parametrize("argv,flag", [(SEARCH, "--shard-hypotheses"),
+                                       (TRACK, "--shard-search")],
+                         ids=["search", "track"])
+def test_several_visible_devices_take_a_grid(argv, flag, capsys,
+                                             monkeypatch):
+    """Two visible devices: no warning, with the flag or by default, and
+    the searches run over a (2 x 1) grid."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch import device as tdevice
+    from lte_cell_scanner_tpu_torch.models import search as tsearch
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tdevice, "visible_devices", lambda d=None: [cpu, cpu])
+    shapes = []
+    real = tsearch.cell_search_sharded
+
+    def sharded(*a, **k):
+        shapes.append(a[5].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tsearch, "cell_search_sharded", sharded)
+    for extra in ([flag], []):
+        rc, out, _ = _run(cli.main, argv + extra + ["--device", "cpu"],
+                          capsys)
+        assert rc == 0 and "Warning" not in out
+    if argv is SEARCH:
+        assert shapes == [{"t": 2, "f": 1}] * 2
+        assert _table(out)[3].startswith("277 2 ")
+    rc, out, _ = _run(cli.main, argv + [f"--no-{flag[2:]}", "--device",
+                                        "cpu"], capsys)
+    assert rc == 0 and len(shapes) == (2 if argv is SEARCH else 0)
+
+
+def test_shard_carriers_spreads_the_band_over_visible_devices(
+        capture_files, capsys, monkeypatch):
+    """--shard-carriers with two visible devices: scan_band over both
+    (a 2-device list), the table of the one-device batched scan."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch import device as tdevice
+    from lte_cell_scanner_tpu_torch.parallel import carriers as tcar
+
+    argv = ["search", "-s", "739e6", "-e", "739.1e6", "-p", "5",
+            "--device", "cpu", "--shard-carriers", "--load-files",
+            capture_files["u8"], capture_files["it"]]
+    rc, one, _ = _run(cli.main, argv, capsys)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tdevice, "visible_devices", lambda d=None: [cpu, cpu])
+    meshes = []
+    real = tcar.scan_band
+
+    def scan(*a, **k):
+        meshes.append(k.get("mesh"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tcar, "scan_band", scan)
+    rc2, two, _ = _run(cli.main, argv, capsys)
+    assert rc == rc2 == 0
+    assert meshes == [[cpu, cpu]]
+    assert _table(one) == _table(two)

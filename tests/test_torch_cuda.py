@@ -74,7 +74,12 @@ def _map_operands(precision, n_t, n_cap, seed, device):
 # capture at T = 93, and a 160 ms one)
 MAP_SHAPES = [(3, 137 + 5), (9, 9600 + 401), (21, 2 * 9600 + 777),
               (5, 9600 + 401), (16, 2 * 9600 + 777), (93, 2 * 9600 + 777),
-              (93, 153600), (93, 307200), (111, 153600)]
+              (93, 153600), (93, 307200), (111, 153600),
+              # a time block of the (t x f) grids of chip_smoke.py phase
+              # 10 (153600 / 4 samples and the 280-sample halo) at T = 93
+              # (4 x 1), 6 (4 x 2 over 4 hypotheses) and 3 (the tracker's
+              # searcher grid)
+              (93, 38400 + 280), (6, 38400 + 280), (3, 38400 + 280)]
 
 
 @pytest.mark.parametrize("n_t,n_cap", MAP_SHAPES)
@@ -847,3 +852,59 @@ def test_band_debug_exports_from_the_device_peak_search(cuda, tmp_path):
         np.testing.assert_array_equal(
             np.asarray(gpu["xc_incoherent_collapsed_frq" + sfx])[nid, ind],
             np.asarray(cpu["xc_incoherent_collapsed_frq" + sfx])[nid, ind])
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["exact", "kernel"])
+def test_sharded_front_end_on_a_card_grid(cuda, kernel):
+    """The (t x f) front end on a (4 x 2) grid that repeats the card,
+    over 4 hypotheses (tests/test_sharded.py:28, about the capture's
+    offset) on the full two-cell capture: the exact route (complex64)
+    within 1e-5 x max of the float64 CPU grid; the kernel route
+    (pss_corr_bf16 once per device) within 1e-5 x max of the one-device
+    front end on the card, whose bf16 map it shares lag for lag.  Argmax
+    on >= 99.9% of lags."""
+    from lte_cell_scanner_tpu_torch.models.xcorr import xcorr_pss
+    from lte_cell_scanner_tpu_torch.parallel.sharded import (
+        make_mesh, plan_sharded_bands, plan_sharded_inputs, sharded_xcorr)
+    cap = two_cell_capture()
+    f_set = np.array([-5e3, 0.0, 5e3, 10e3]) + 35e3
+    grid = make_mesh(4, 2, [cuda] * 8)
+    inp = plan_sharded_inputs(cap, f_set, FC, FC, FS, grid,
+                              dtype=np.complex128)
+    bands = plan_sharded_bands(inp[1], grid) if kernel else ()
+    corr_cuda.reset_launch_counts()
+    pow_g, frq_g = (x.cpu().numpy() for x in sharded_xcorr(
+        grid, inp[0], inp[1], inp[2], 2, inp[3], inp[4], 0, bands))
+    torch.cuda.synchronize()
+    assert _launched() == ({"pss_corr_bf16": 8} if kernel else {})
+    if kernel:
+        ref = xcorr_pss(cap, f_set, 2, FC, FC, FS, lean=True,
+                        device="cuda")
+        pow_r, frq_r = (ref.xc_incoherent_collapsed_pow,
+                        ref.xc_incoherent_collapsed_frq)
+    else:
+        cpu = make_mesh(4, 2, ["cpu"] * 8)
+        pow_r, frq_r = (x.numpy() for x in sharded_xcorr(
+            cpu, inp[0], inp[1], inp[2], 2, inp[3], inp[4]))
+    assert np.max(np.abs(pow_g - pow_r)) <= 1e-5 * np.max(pow_r)
+    assert (frq_g == frq_r).mean() >= 0.999
+
+
+def test_cell_search_over_a_card_grid_decodes_both_cells(cuda):
+    """cell_search(mesh=(4 x 1) of the card) at full width (T = 93):
+    one pss_corr_bf16 launch per time block, the one-device search's
+    cells."""
+    from lte_cell_scanner_tpu_torch.parallel.sharded import make_mesh
+    cap = two_cell_capture()
+    f_set = default_f_search_set(FC, 100.0)
+    corr_cuda.reset_launch_counts()
+    cells = cell_search(cap, f_set, FC, FC, FS,
+                        mesh=make_mesh(4, 1, [cuda] * 4))
+    torch.cuda.synchronize()
+    assert _launched() == {"pss_corr_bf16": 4}
+    one = cell_search(cap, f_set, FC, FC, FS, device=cuda)
+    key = [(c.n_id_cell(), c.cp_type, c.n_rb_dl, c.n_ports, c.sfn)
+           for c in cells]
+    assert sorted(k[0] for k in key) == sorted(TWO_CELL_TRUTH)
+    assert key == [(c.n_id_cell(), c.cp_type, c.n_rb_dl, c.n_ports, c.sfn)
+                   for c in one]

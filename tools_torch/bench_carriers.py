@@ -17,7 +17,8 @@ does:
   map kernel carrier by carrier with --kernel v2.  --repeats calls on
   distinct rolled captures, synchronised once at the end.
 - --full-chain, through MIB: ``scan_band`` itself (batched front end,
-  device peak search, batched SSS/FOE, fused decode) on C rolled copies
+  device peak search, batched SSS/FOE, fused decode; over every visible
+  card when there are several) on C rolled copies
   of a capture that holds two cells, one warm-up then --repeats timed
   calls; ``cells_per_carrier`` and ``cell_ids`` say what decoded (a
   cyclic roll leaves one seam in the capture, so a cell whose only
@@ -68,7 +69,7 @@ def front_rows(base, f_set, batches, repeats, kernel, dev, sync):
     rows = []
     for C in batches:
         fcs = [FC + 100e3 * i for i in range(C)]
-        _cap, tmpl, starts, _n = plan_carrier_inputs(
+        _cap, tmpl, starts, _n, _c = plan_carrier_inputs(
             [base] * C, fcs, f_set, fcs, FS_WORK)
         route = _plan_scan_bands(tmpl, starts, [base], SearchConfig(), dev)
         if kernel == "v2" or (kernel == "v4" and route.mid_starts is None):
@@ -94,20 +95,25 @@ def front_rows(base, f_set, batches, repeats, kernel, dev, sync):
 
 
 def chain_rows(base, f_set, batches, repeats, dev, sync):
-    """carriers/s through MIB (scan_band end to end) per batch size."""
+    """carriers/s through MIB (scan_band end to end) per batch size, over
+    every visible card when there are several (as the TPU tool spreads
+    the band over its mesh)."""
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.device import visible_devices
     from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
 
+    devices = visible_devices(dev)
+    place = {"mesh": devices} if len(devices) > 1 else {"device": dev}
     rows = []
     for C in batches:
         fcs = [FC + 100e3 * i for i in range(C)]
         reps = [[(np.roll(base, 31 * i + 977 * k + 1), fcs[i], fcs[i])
                  for i in range(C)] for k in range(repeats + 1)]
-        res = scan_band(reps[0], f_set, FS_WORK, device=dev)   # warm-up
+        res = scan_band(reps[0], f_set, FS_WORK, **place)   # warm-up
         sync()
         t0 = time.perf_counter()
         for caps in reps[1:]:
-            res = scan_band(caps, f_set, FS_WORK, device=dev)
+            res = scan_band(caps, f_set, FS_WORK, **place)
         sync()
         dt = (time.perf_counter() - t0) / repeats
         n_cells = sum(len(r) for r in res)

@@ -20,6 +20,12 @@ Variants (default +-100 ppm grid, 93 templates, the port's two-cell
   v1_bf16        the v1 route's map with bf16 operands: pss_corr_bf16_f32out
                  (tensor cores, the taps packed once)
   front_lean_v1  ``xcorr_core(lean=True)`` with v1 bf16 operands
+  sharded_1x1    the (t x f) front end of ``parallel/sharded.py`` on a
+                 (1 x 1) grid (halo, block fold, collapse, sp_incoherent
+                 and the pre-delay-spread fold), exact correlation: what
+                 the grid's bookkeeping costs beside front_lean
+  sharded_1x1_kernel  the same with the grid's kernel operands
+                 (pss_corr_bf16 on the 280-sample halo-extended block)
 
 Each time is the median over --repeats windows of 5 back-to-back calls
 timed with CUDA events after a warm-up (on the CPU: the host clock around
@@ -27,9 +33,8 @@ one call); ``{name}_useful_tflops`` counts 8 T n_lags 137 operations per
 call.  TF32 is off.  --parity-only prints instead each kernel route's max
 |error| against exact_pow over exact_pow's max (v1_f32, v1_bf16, and v2
 bf16, the production map), and exits non-zero when one exceeds its bar:
-1e-4 for f32 operands, 2e-2 for bf16 (tests/test_xcorr.py:195).  The TPU
-tool's sharded_1x1 needs the multi-device slice (ROADMAP Queue 1) and is
-not here.  A variant that fails raises, so the process exits non-zero.
+1e-4 for f32 operands, 2e-2 for bf16 (tests/test_xcorr.py:195).  A
+variant that fails raises, so the process exits non-zero.
 """
 
 from __future__ import annotations
@@ -55,9 +60,26 @@ from lte_cell_scanner_tpu_torch.ops.corr import correlate  # noqa: E402
 from tools_torch.bench_corr_v2 import (FC, bench_capture,  # noqa: E402
                                        device_name, time_ms)
 
-VARIANTS = ("front_lean", "exact_pow", "v1_f32", "v1_bf16", "front_lean_v1")
+VARIANTS = ("front_lean", "exact_pow", "v1_f32", "v1_bf16", "front_lean_v1",
+            "sharded_1x1", "sharded_1x1_kernel")
 PARITY_BARS = {"v1_f32": 1e-4, "v1_bf16": 2e-2, "v2_bf16": 2e-2}
 DS_COMB_ARM = 2
+
+
+def _sharded(capbuf: np.ndarray, f_set, device, kernel: bool):
+    """The (1 x 1) grid's front end with its aux outputs, the capture
+    padded and on the device once."""
+    from lte_cell_scanner_tpu_torch.device import to_capture
+    from lte_cell_scanner_tpu_torch.parallel.sharded import (
+        make_mesh, plan_sharded_bands, plan_sharded_inputs, sharded_xcorr)
+    grid = make_mesh(1, 1, [device])
+    padded, tmpl, starts, n_comb_xc, n_lags = plan_sharded_inputs(
+        capbuf, f_set, FC, FC, FS_WORK, grid, dtype=np.complex64)
+    padded = to_capture(padded, device)
+    n_comb_sp = (len(capbuf) - 136 - 137) // 9600
+    bands = plan_sharded_bands(tmpl, grid) if kernel else ()
+    return lambda: sharded_xcorr(grid, padded, tmpl, starts, DS_COMB_ARM,
+                                 n_comb_xc, n_lags, n_comb_sp, bands)
 
 
 def _setup(args):
@@ -120,8 +142,12 @@ def run(args) -> dict:
     def front(k):
         return lambda: xcorr_core(cap_t, None, starts, DS_COMB_ARM, False,
                                   True, k)
+    capbuf = bench_capture(args.samples)
+    f_set = default_f_search_set(FC, args.ppm)
     fns = dict(_maps(cap_t, tmpl_flat, kern, v1),
-               front_lean=front(kern), front_lean_v1=front(v1["bf16"]))
+               front_lean=front(kern), front_lean_v1=front(v1["bf16"]),
+               sharded_1x1=_sharded(capbuf, f_set, device, False),
+               sharded_1x1_kernel=_sharded(capbuf, f_set, device, True))
     for v in variants:
         out = fns[v]()
         outs = out if isinstance(out, tuple) else (out,)
