@@ -117,13 +117,13 @@ def scan_rate(capbuf: np.ndarray, f_set: np.ndarray, n_c: int,
             "precision": precision, "n_t": tmpl.shape[1] * tmpl.shape[2]}
 
 
-def full_chain(capbuf: np.ndarray, f_set: np.ndarray, dev: torch.device,
-               runs: int) -> dict:
+def full_chain(capbuf: np.ndarray, fc: float, f_set: np.ndarray,
+               dev: torch.device, runs: int) -> dict:
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.models.search import cell_search
 
     def run(timings=None):
-        return cell_search(capbuf, f_set, FC, FC, FS_WORK, device=dev,
+        return cell_search(capbuf, f_set, fc, fc, FS_WORK, device=dev,
                            timings=timings)
 
     run()                                          # warm-up
@@ -189,7 +189,7 @@ def main(argv=None) -> int:
            "route": rate["route"], "carriers": args.carriers,
            "device": torch.cuda.get_device_name(dev)
            if dev.type == "cuda" else "cpu",
-           "full_chain": full_chain(capbuf, f_set, dev, args.runs)}
+           "full_chain": full_chain(capbuf, FC, f_set, dev, args.runs)}
     print(json.dumps(out))
     return 0
 

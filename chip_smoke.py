@@ -186,15 +186,36 @@ Phases, each fatal on failure:
      ``tools_torch/bench_kernels.py`` front_lean, sharded_1x1 and
      sharded_1x1_kernel; each step's seconds with the card's name and
      power limit;
- 11. the five map_tc_kernel instances' useful rates against this card's
+ 11. the public staged API on the card ("surface"), launch counts zeroed
+     just before and read just after each run (the counts go into the
+     kernel records as ``surface_launches``): 11a phase 4's peak lists
+     (``cell_search`` of the float and the ADC-grid two-cell capture at
+     T = 93: one pss_corr_bf16 or pss_corr_int8 launch) through
+     ``sss_detect_batch`` -> ``pss_sss_foe_batch``, equal to the fused
+     ``sss_foe_batch_fused`` that ``cell_search`` ran on the same peaks
+     in n_id_1, CP and frame_start, freq_fine within SURFACE_FF_HZ (the
+     gap printed); 11b the same for phase 7's two bands (``scan_band``:
+     two v4 launches each) through ``sss_detect_batch_multi`` ->
+     ``pss_sss_foe_batch_multi`` against ``sss_foe_batch_fused(
+     carrier_idx=)``; 11c ``ce_interp_hex`` of each port on
+     tests/vectors/test_tfg.it against the fused hex ``chan_est``, and
+     ``pbch_extract`` against the CPU's, no kernel launched; 11d
+     ``interpft`` of the sync template's bodies against
+     ``interpft_host`` within SURFACE_REL x max; 11e
+     ``tools_torch/bench_tracker.py``'s ``bench_one`` at 4 cells with the
+     device loop off, serial and with ``parallel=4``, on phase 9's
+     recorded stream: every cell held, the realtime factors printed with
+     the card's name and power limit (no gate on speed); the phase's
+     seconds;
+ 12. the five map_tc_kernel instances' useful rates against this card's
      rulers of phase 5b (bf16 matmul, bf16 matmul with f32 output for
      pss_corr_bf16_f32out, int8 _int_mm); one JSON line of kernel records
      (all nine: the four above and the five of the A/B path, whose
      launches are those of phase 5b; each with its ``file_launches`` of
      phase 4b, its ``tracker_launches`` of phase 9, its
-     ``tools_launches`` of phase 9b and its ``multidevice_launches`` of
-     phase 10, rows 1-2 with their ``searcher_t3`` record), then the
-     result line.
+     ``tools_launches`` of phase 9b, its ``multidevice_launches`` of
+     phase 10 and its ``surface_launches`` of phase 11, rows 1-2 with
+     their ``searcher_t3`` record), then the result line.
 
 Exits non-zero, printing no result line, without a CUDA device.
 """
@@ -1279,6 +1300,7 @@ def run_band_path(label: str, band, f_set, precision: str,
 
 KAL_FOFF = 31e3            # kalibrate's simulated crystal offset (Hz)
 TRACKER_F_OFF = 200.0      # bench_tracker's MultiCellStream offset (Hz)
+TRACKER_SNR_DB = 12.0      # bench_tracker's --snr default (dB)
 TRACKER_RUNS = 2           # timed segments per tracker run
 TRACKER_SECONDS = 2.0      # stream-seconds per timed segment
 # the TPU package's device-loop tolerances (tests/test_tracker.py:917-930)
@@ -1304,17 +1326,18 @@ class _Recorded:
 
 class _Replay:
     """The samples a _Recorded stream handed out, then its source's
-    next ones."""
+    next ones, which the recording keeps as well (so a later replay
+    stays continuous)."""
 
     def __init__(self, rec: _Recorded):
-        self.src = rec.src
-        self.pending = np.concatenate(rec.parts)
+        self.rec = rec
+        self.pending = np.concatenate(rec.parts or [np.zeros(0, np.complex64)])
 
     def take(self, n: int) -> np.ndarray:
         x = self.pending[:n]
         self.pending = self.pending[n:]
         if len(x) < n:
-            x = np.concatenate([x, self.src.take(n - len(x))])
+            x = np.concatenate([x, self.rec.take(n - len(x))])
         return x
 
 
@@ -1572,14 +1595,15 @@ def trajectory_against_cpu() -> None:
 
 
 def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
-    """Phase 9; returns the tracker path's launch counts."""
+    """Phase 9; returns the tracker path's launch counts and the 4-cell
+    stream it recorded."""
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.io import native
     from lte_cell_scanner_tpu_torch.io.capture import SimSource
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     from lte_cell_scanner_tpu_torch.tracker.runner import kalibrate
-    from tools_torch.bench_tracker import (CELL_PLAN, SNR_DB,
-                                           MultiCellStream, bench_one)
+    from tools_torch.bench_tracker import (CELL_PLAN, MultiCellStream,
+                                           bench_one)
     t_phase = time.perf_counter()
     lib = native.load()
     if native.get_lib() is not lib:
@@ -1604,7 +1628,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
     searcher_maps(cap_float, cap_adc, records)
 
     want = [3 * n_id_1 + 1 for n_id_1, _s, _f in CELL_PLAN[:4]]
-    rec = _Recorded(MultiCellStream(4, SNR_DB, f_off=TRACKER_F_OFF))
+    rec = _Recorded(MultiCellStream(4, TRACKER_SNR_DB, f_off=TRACKER_F_OFF))
     corr_cuda.reset_launch_counts()
     res4 = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, device="cuda",
                      stream=rec, verbose=False)
@@ -1644,7 +1668,7 @@ def phase_tracker(cap_float, cap_adc, records: dict, smi: str) -> dict:
              if during is None else f"{during:.3f} ms"))
     print(f"phase 9: {time.perf_counter() - t_phase:.2f} s; launches "
           f"{counts}")
-    return counts
+    return counts, rec
 
 
 class FakeDongle:
@@ -1805,8 +1829,9 @@ def surface_live_track(counts: dict) -> None:
     from lte_cell_scanner_tpu_torch.ops import corr_cuda
     from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
     from lte_cell_scanner_tpu_torch.utils.rtl import complex_to_iq_u8
-    from tools_torch.bench_tracker import SNR_DB, MultiCellStream
-    raw = complex_to_iq_u8(MultiCellStream(1, SNR_DB, f_off=TRACKER_F_OFF)
+    from tools_torch.bench_tracker import MultiCellStream
+    raw = complex_to_iq_u8(MultiCellStream(1, TRACKER_SNR_DB,
+                                           f_off=TRACKER_F_OFF)
                            .take(int(2.0 * 1.92e6)))
     seen = {"rings": [], "dropped": [], "runners": []}
     real = (rtlsdr.load_librtlsdr, rtlsdr.RtlSdrSource._make_ring,
@@ -1958,6 +1983,220 @@ def phase_surface(cap_float, cap_adc) -> dict:
     surface_benches(counts)
     print(f"phase 9b: {time.perf_counter() - t_phase:.2f} s; launches "
           f"{counts}")
+    return counts
+
+
+# phase 11: the public staged API on the card
+
+SURFACE_FF_HZ = 0.1        # staged vs fused freq_fine on the card (Hz)
+SURFACE_REL = 1e-5         # ce_interp_hex, interpft vs their references
+
+
+class _FusedCalls:
+    """Keeps every sss_foe_batch_fused call of ``module`` while active:
+    (peaks, capture stack, carrier indices, thresh2_n_sigma, compat,
+    result)."""
+
+    def __init__(self, module):
+        self.module = module
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = self.module.sss_foe_batch_fused
+
+        def fused(cells, capbuf_stack, carrier_idx, thresh2_n_sigma,
+                  fs_programmed, compat="production", skip_ids=frozenset()):
+            out = real(cells, capbuf_stack, carrier_idx, thresh2_n_sigma,
+                       fs_programmed, compat=compat, skip_ids=skip_ids)
+            self.calls.append((list(cells), capbuf_stack, list(carrier_idx),
+                               thresh2_n_sigma, compat, out))
+            return out
+
+        self.module.sss_foe_batch_fused = fused
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sss_foe_batch_fused = self.real
+
+
+def staged_against_fused(label: str, calls, multi: bool) -> float:
+    """Each recorded fused call's peaks through the staged pair (the
+    ``_multi`` pair over the capture stack with ``multi``): n_id_1, CP
+    and frame_start equal to the fused result, freq_fine within
+    SURFACE_FF_HZ.  Returns the largest freq_fine gap (Hz)."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models import sss_detect as sd
+    worst, n_acc, n_peaks = 0.0, 0, 0
+    if not calls:
+        fail(f"{label}: the path ran no fused SSS/FOE")
+    for peaks, stack, ci, thresh2, compat, fused in calls:
+        if multi:
+            det = sd.sss_detect_batch_multi(peaks, stack, ci, thresh2,
+                                            FS_WORK, compat)
+        else:
+            det = sd.sss_detect_batch(peaks, stack[0], thresh2, FC, FC,
+                                      FS_WORK, compat)
+        keep = [i for i, c in enumerate(det) if c.n_id_1 >= 0]
+        acc = [det[i] for i in keep]
+        if multi:
+            foe = sd.pss_sss_foe_batch_multi(acc, stack,
+                                             [ci[i] for i in keep],
+                                             FS_WORK, compat)
+        else:
+            foe = sd.pss_sss_foe_batch(acc, stack[0], FC, FC, FS_WORK,
+                                       compat)
+        for i, c in zip(keep, foe):
+            det[i] = c
+        for g, f in zip(det, fused):
+            if (g.n_id_1, g.cp_type, g.frame_start) != \
+                    (f.n_id_1, f.cp_type, f.frame_start):
+                fail(f"{label}: staged {g} differs from fused {f}")
+        for i in keep:
+            worst = max(worst, abs(det[i].freq_fine - fused[i].freq_fine))
+        n_acc += len(keep)
+        n_peaks += len(peaks)
+    print(f"{label}: staged pair == fused on {n_peaks} peaks ({n_acc} "
+          f"accepted) in n_id_1, CP, frame_start; largest freq_fine gap "
+          f"{worst:.6g} Hz")
+    if not n_acc:
+        fail(f"{label}: no peak accepted")
+    if worst > SURFACE_FF_HZ:
+        fail(f"{label}: freq_fine {worst} Hz from the fused path")
+    return worst
+
+
+def surface_staged(cap_float, cap_adc, band_float, band_adc, f_set,
+                   counts: dict) -> dict:
+    """11a and 11b: the staged pairs against the fused path on the peaks
+    of the single-carrier and the band path; returns the gaps."""
+    from lte_cell_scanner_tpu_torch.constants import FS_WORK
+    from lte_cell_scanner_tpu_torch.models import search
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.parallel import carriers
+    gaps = {}
+    for name, cap, precision in (("float capture", cap_float, "bf16"),
+                                 ("ADC-grid capture", cap_adc, "int8")):
+        corr_cuda.reset_launch_counts()
+        with _FusedCalls(search) as rec:
+            search.cell_search(cap, f_set, FC, FC, FS_WORK, device="cuda")
+        count_launches(f"11a {name}", {f"pss_corr_{precision}"}, counts)
+        gaps[name] = staged_against_fused(f"11a {name}", rec.calls, False)
+    for name, band, precision in (("float band", band_float, "bf16"),
+                                  ("ADC-grid band", band_adc, "int8")):
+        corr_cuda.reset_launch_counts()
+        with _FusedCalls(carriers) as rec:
+            carriers.scan_band(band, f_set, FS_WORK, device="cuda",
+                               max_carriers_per_program=CHUNK)
+        count_launches(f"11b {name}", {f"pss_corr_fold_{precision}"},
+                       counts)
+        gaps[name] = staged_against_fused(f"11b {name}", rec.calls, True)
+    return gaps
+
+
+def surface_ce_interp() -> None:
+    """11c: ce_interp_hex and pbch_extract on the card on the tfg
+    vector."""
+    import pathlib
+
+    from lte_cell_scanner_tpu_torch.cell import Cell, CpType
+    from lte_cell_scanner_tpu_torch.models import chan_est, mib
+    from lte_cell_scanner_tpu_torch.models.rs import RsDl
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.utils.itfile import read_itfile
+    vec = pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+    tfg_h = torch.from_numpy(read_itfile(str(vec / "test_tfg.it"))["tfg"])
+    tfg = tfg_h.to("cuda", torch.complex64)
+    # the vector's cell: 277, normal CP (BASELINE.md)
+    cell = Cell(fc_requested=FC, fc_programmed=FC, ind=8674, freq=40e3,
+                n_id_2=1, n_id_1=92, cp_type=CpType.NORMAL,
+                frame_start=17448.525, freq_fine=39684.0775)
+    rs_dl = RsDl(277, 6, CpType.NORMAL)
+    n_ofdm = int(tfg.shape[0])
+    corr_cuda.reset_launch_counts()
+    ces = []
+    for port in range(4):
+        raw, rs_set, shifts = chan_est._extract_raw_ce(rs_dl, tfg, port)
+        filt = chan_est._hex_filter(raw, int(shifts[0]), int(shifts[1]))
+        got = chan_est.ce_interp_hex(filt, rs_set, shifts, n_ofdm,
+                                     cell.n_symb_dl(), port)
+        ref, _np = chan_est.chan_est(cell, rs_dl, tfg, port, interp="hex")
+        if got.device.type != "cuda":
+            fail("11c: ce_interp_hex left the card")
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        print(f"11c ce_interp_hex port {port}: {tuple(got.shape)} within "
+              f"{rel:.3g} x max of chan_est(interp='hex') on the card")
+        if not rel <= SURFACE_REL:
+            fail(f"11c: ce_interp_hex port {port} {rel} x max")
+        ces.append(ref)
+    sym, ce = mib.pbch_extract(cell, tfg, ces)
+    sym_h, ce_h = mib.pbch_extract(cell, tfg.cpu(), [c.cpu() for c in ces])
+    if not (torch.equal(sym.cpu(), sym_h) and torch.equal(ce.cpu(), ce_h)):
+        fail("11c: pbch_extract on the card differs from the CPU's")
+    print(f"11c pbch_extract: {tuple(sym.shape)} symbols, CE "
+          f"{tuple(ce.shape)}, equal to the CPU's gather")
+    read_launches("11c", set())
+
+
+def surface_interpft() -> None:
+    """11d: interpft on the card against interpft_host on the sync
+    template's 128-sample bodies (x1024) and a CP-length PSS (x7)."""
+    from lte_cell_scanner_tpu_torch.models.pss import pss_td
+    from lte_cell_scanner_tpu_torch.models.sss import sss_td
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from lte_cell_scanner_tpu_torch.ops.dsp import interpft, interpft_host
+    corr_cuda.reset_launch_counts()
+    for name, x, n_y in (("PSS body", pss_td(1)[9:], 1024 * 128),
+                         ("SSS body", sss_td(92, 1, 0)[9:], 1024 * 128),
+                         ("PSS with CP", pss_td(2), 7 * 137)):
+        ref = interpft_host(np.asarray(x), n_y)
+        got = interpft(torch.from_numpy(np.asarray(x, np.complex64)).cuda(),
+                       n_y).cpu().numpy()
+        rel = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        print(f"11d interpft {name} ({len(x)} -> {n_y}): within {rel:.3g}"
+              f" x max of interpft_host")
+        if got.shape != ref.shape or not rel <= SURFACE_REL:
+            fail(f"11d: interpft {name} {got.shape} {rel} x max")
+    read_launches("11d", set())
+
+
+def surface_tracker_host(rec, smi: str, counts: dict) -> dict:
+    """11e: bench_one at 4 cells off the device loop, serial and with a
+    pool of 4, on phase 9's recorded stream."""
+    from lte_cell_scanner_tpu_torch.ops import corr_cuda
+    from tools_torch.bench_tracker import CELL_PLAN, bench_one
+    want = [3 * n_id_1 + 1 for n_id_1, _s, _f in CELL_PLAN[:4]]
+    rates = {}
+    for label, parallel in (("device loop off", 0),
+                            ("device loop off, parallel=4", 4)):
+        corr_cuda.reset_launch_counts()
+        res = bench_one(4, TRACKER_RUNS, TRACKER_SECONDS, verbose=False,
+                        parallel=parallel, device_loop=False, device="cuda",
+                        stream=_Replay(rec))
+        count_launches(f"11e tracker, {label}",
+                       {"pss_corr_int8", "pss_corr_bf16"}, counts)
+        check_tracked(f"11e tracker, 4 cells x 2 ports, {label}", res, want)
+        print_tracker_run(f"11e tracker, 4 cells x 2 ports, {label}", res,
+                          smi)
+        rates[label] = res["value"]
+    return rates
+
+
+def phase_public_api(cap_float, cap_adc, band_float, band_adc, f_set,
+                     rec, smi: str) -> dict:
+    """Phase 11; returns its launch counts."""
+    t_phase = time.perf_counter()
+    counts = {}
+    gaps = surface_staged(cap_float, cap_adc, band_float, band_adc, f_set,
+                          counts)
+    surface_ce_interp()
+    surface_interpft()
+    rates = surface_tracker_host(rec, smi, counts)
+    print(f"phase 11 on {smi}: {time.perf_counter() - t_phase:.2f} s; "
+          f"staged vs fused freq_fine gaps (Hz) " + ", ".join(
+              f"{k} {v:.6g}" for k, v in gaps.items())
+          + "; realtime_factor off the device loop " + ", ".join(
+              f"{k}: {v:.4f}" for k, v in rates.items())
+          + f"; launches {counts}")
     return counts
 
 
@@ -2377,10 +2616,12 @@ def main() -> int:
         band_float, f_set, FS_WORK, device="cuda",
         max_carriers_per_program=CHUNK))
 
-    tracker_counts = phase_tracker(cap_float, cap_adc, records, smi)
+    tracker_counts, stream = phase_tracker(cap_float, cap_adc, records, smi)
     tools_counts = phase_surface(cap_float, cap_adc)
     md_counts = phase_multidevice(cap_float, f_set, float_cells, band_float,
                                   band_cells, band_rates, smi)
+    api_counts = phase_public_api(cap_float, cap_adc, band_float, band_adc,
+                                  f_set, stream, smi)
 
     # each map_tc_kernel instance against its ruler of phase 5b
     for rec, key in ((records["bf16"], "bf16"), (records["int8"], "int8"),
@@ -2409,6 +2650,7 @@ def main() -> int:
         rec["tracker_launches"] = tracker_counts.get(rec["name"], 0)
         rec["tools_launches"] = tools_counts.get(rec["name"], 0)
         rec["multidevice_launches"] = md_counts.get(rec["name"], 0)
+        rec["surface_launches"] = api_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,8 @@ from .e4000 import fc_programmed_with_fudge
 class CaptureSource:
     """A source of capture buffers."""
 
+    fs_programmed: float = FS_WORK
+
     def capture(self, fc_requested: float) -> Tuple[np.ndarray, float]:
         """Return (capbuf, fc_programmed)."""
         raise NotImplementedError

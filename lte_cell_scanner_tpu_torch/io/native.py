@@ -25,6 +25,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import time
 from typing import Optional, Tuple
 
@@ -67,6 +68,24 @@ def build() -> Tuple[float, str]:
         raise RuntimeError(f"{cxx} failed:\n{proc.stdout}")
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0, proc.stdout
+
+
+def ensure_built(quiet: bool = True, force: bool = False) -> bool:
+    """Build the runtime when it is missing or older than its sources
+    (always with ``force``); returns whether a current library is there,
+    False when the build fails.  The compiler's output goes to stderr
+    unless ``quiet``."""
+    if not force and not _stale():
+        return True
+    try:
+        _seconds, out = build()
+    except RuntimeError as e:
+        if not quiet:
+            print(e, file=sys.stderr)
+        return False
+    if not quiet and out:
+        print(out, file=sys.stderr)
+    return True
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -276,13 +276,20 @@ class RtlSdrSource(CaptureSource):
             return _PyRing(capacity_bytes)
         return native.SampleRing(capacity_bytes)
 
-    def stream(self, block: int = 10000, ring_seconds: float = 2.0,
+    def stream(self, block: int = 10000, use_async: bool = True,
+               ring_seconds: float = 2.0,
                poll_sleep: float = 0.001) -> Iterator[np.ndarray]:
         """Continuous blocks of ``block`` complex samples.
 
-        A reader thread drains the dongle into the SPSC ring regardless
-        of consumer pace; overruns drop whole USB blocks with counters
-        (``dropped_bytes``, ``dropped_seconds()``)."""
+        use_async=True (the reference's layout): a reader thread drains
+        the dongle into the SPSC ring regardless of consumer pace;
+        overruns drop whole USB blocks with counters (``dropped_bytes``,
+        ``dropped_seconds()``).  use_async=False: the plain blocking
+        read loop, one synchronous read per block."""
+        if not use_async:
+            while True:
+                raw = self._read_exact(block * 2)
+                yield iq_u8_to_complex(np.frombuffer(raw, dtype=np.uint8))
         cap_bytes = max(int(2 * self.fs_programmed * ring_seconds),
                         4 * block * 2)
         ring = self._make_ring(cap_bytes)

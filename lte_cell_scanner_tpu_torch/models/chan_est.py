@@ -284,11 +284,19 @@ def _chan_est_hex_impl(tfg, rows, cols, rs_conj, wl, wr, idx, w):
     ce_filt = _hex_filter_weighted(raw, wl, wr)
     resid = ce_filt - raw
     np_est = torch.mean(resid.real ** 2 + resid.imag ** 2, dim=(-2, -1))
+    return _hex_gather_sum(ce_filt, idx, w), np_est
+
+
+def _hex_gather_sum(ce_filt, idx, w):
+    """The triangle-plane interpolation as a sparse gather-sum: ce_filt
+    [B, P, n_rs, 12] through the plan idx/w [B, P, n_ofdm*72, 6] of
+    _hex_interp_plan -> [B, P, n_ofdm, 72]."""
+    bsz, n_p = idx.shape[:2]
     flat = ce_filt.reshape(bsz, n_p, -1)
     vals = torch.gather(flat, 2, idx.reshape(bsz, n_p, -1)) \
-        .reshape(idx.shape) * w.to(raw.real.dtype)
+        .reshape(idx.shape) * w.to(ce_filt.real.dtype)
     n_ofdm = idx.shape[2] // 72
-    return vals.sum(dim=-1).reshape(bsz, n_p, n_ofdm, 72), np_est
+    return vals.sum(dim=-1).reshape(bsz, n_p, n_ofdm, 72)
 
 
 def _extract_raw_ce(rs_dl: RsDl, tfg: torch.Tensor, port: int):
@@ -322,6 +330,22 @@ def _time_interp(frq: torch.Tensor, rs_set: np.ndarray,
     rs_x = torch.from_numpy(rs_set.astype(np.float64)).to(frq.device, rdt)
     t_all = torch.arange(n_ofdm, dtype=rdt, device=frq.device)
     return interp1(rs_x, frq.transpose(0, 1), t_all).transpose(0, 1)
+
+
+def ce_interp_hex(ce_filt: torch.Tensor, rs_set: np.ndarray,
+                  shifts: np.ndarray, n_ofdm: int, n_symb_dl: int,
+                  port: int) -> torch.Tensor:
+    """Triangle-plane interpolation of one port's filtered CE ce_filt
+    [n_rs, 12] over the hex RS lattice to the full grid [n_ofdm, 72]
+    (reference searcher.cpp:1200-1362), as the sparse gather-sum of
+    _hex_interp_plan (the plan depends on the geometry only: rs_set
+    follows from n_symb_dl and port)."""
+    idx, w = _hex_interp_plan(n_ofdm, n_symb_dl, int(shifts[0]),
+                              int(shifts[1]), 1 if port >= 2 else 0)
+    dev = ce_filt.device
+    return _hex_gather_sum(ce_filt[None, None],
+                           torch.from_numpy(idx).to(dev)[None, None],
+                           torch.from_numpy(w).to(dev)[None, None])[0, 0]
 
 
 def ce_interp_2stage(ce_filt: torch.Tensor, rs_set: np.ndarray,

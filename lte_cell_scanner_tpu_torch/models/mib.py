@@ -50,6 +50,18 @@ def pbch_index_plan(n_symb_dl: int, v_shift_m3: int) -> np.ndarray:
     return np.asarray(out, dtype=np.int64)
 
 
+def pbch_extract(cell: Cell, tfg: torch.Tensor, ce_list):
+    """The PBCH symbols and the 4-port channel estimates at the PBCH REs
+    (reference pbch_extract, searcher.cpp:1479-1520): tfg [n_ofdm, 72],
+    ce_list four tensors like tfg -> (pbch_sym [n_re], pbch_ce [4, n_re])
+    on tfg's device."""
+    plan = torch.from_numpy(
+        pbch_index_plan(cell.n_symb_dl(), cell.n_id_cell() % 3)).to(
+            tfg.device)
+    rows, cols = plan[:, 0], plan[:, 1]
+    return tfg[rows, cols], torch.stack([c[rows, cols] for c in ce_list])
+
+
 def _combine(pbch_sym, pbch_ce, np_v, n_ports: int):
     """Channel compensation: MRC (1 port) or Alamouti SFBC ZF (2/4 ports)
     over leading batch axes.  pbch_sym [..., n_re]; pbch_ce

@@ -37,7 +37,7 @@ import torch
 
 from ..cell import Cell, CpType
 from ..constants import FS_LTE
-from ..device import real_dtype, tensor
+from ..device import resolve_device, tensor, to_capture
 from ..ops.dsp import (dft, extract_center_subcarriers, fshift_ramp,
                        matlab_range)
 from .pss import PSS_FD
@@ -62,6 +62,31 @@ def _dft_segments_idx(capbuf: torch.Tensor, ci: torch.Tensor,
     segs = torch.roll(segs, -2, dims=-1)
     dft_out = dft(segs)
     return extract_center_subcarriers(dft_out, n_sc)
+
+
+def _capture(capbuf, device=None) -> torch.Tensor:
+    """A capture (or a [C, n_cap] stack) as a tensor: a tensor stays on
+    its device unless ``device`` names another; a host array goes to
+    ``device`` (None = the card) in the device's working type."""
+    if isinstance(capbuf, torch.Tensor) and device is None:
+        return capbuf
+    return to_capture(capbuf, resolve_device(device))
+
+
+def extract_dft_segments(capbuf, locs, foc_freq: float, fs_mix: float,
+                         n_sc: int = 62, device=None) -> torch.Tensor:
+    """The reference's extract_psss (searcher.cpp:516-530) at every
+    integer window start of ``locs``: capbuf[l:l+128] through the mixer
+    exp(j*2*pi*foc_freq*t/fs_mix) (phase 0 at each window start), the
+    2-sample timing margin rotated out, a unitary 128-pt DFT, the n_sc
+    center subcarriers -> [len(locs), n_sc] on the capture's device."""
+    cap = _capture(capbuf, device)
+    dev = cap.device
+    idx = np.asarray(locs, dtype=np.int64)[:, None] + np.arange(128)
+    return _dft_segments_idx(
+        cap[None], torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.from_numpy(idx[None]).to(dev), tensor([foc_freq], dev),
+        tensor([fs_mix], dev), n_sc)[0]
 
 
 def _smooth13(h_raw: torch.Tensor) -> torch.Tensor:
@@ -352,6 +377,44 @@ def _foe_impl(capbuf, ci, locs, mask, pss_sss_dist, freq, fs_mix,
     return torch.sum(torch.conj(sss_raw) * h_raw * w, dim=(1, 2))
 
 
+def _detect_inputs(cells_fc, n_cap: int, fs_programmed: float,
+                   compat: str, dev: torch.device):
+    """The host plan of a detect batch: every peak's padded PSS DFT
+    locations re-padded to the widest peak (a pathological-ppm peak can
+    exceed the capture-length capacity), as device tensors (locs, mask,
+    freq, fs_mix, n_id_2).  cells_fc: (cell, fc_requested, fc_programmed)
+    triples."""
+    preps = [_getce_prepare(c, n_cap, fcr, fcp, fs_programmed, compat)
+             for c, fcr, fcp in cells_fc]
+    rows = max(len(p[0]) for p in preps)
+    padded = [_extend_pad(locs, mask, rows) for locs, mask, _f, _m in preps]
+    return (tensor(np.stack([pl for pl, _ in padded]), dev),
+            tensor(np.stack([pm for _, pm in padded]), dev),
+            tensor([p[2] for p in preps], dev),
+            tensor([p[3] for p in preps], dev),
+            tensor([c.n_id_2 for c, _r, _p in cells_fc], dev))
+
+
+def _detect_run(cells_fc, cap_stack: torch.Tensor, carrier_idx,
+                fs_programmed: float, compat: str):
+    """_detect_impl over a peak batch of the stack cap_stack [C, n_cap]:
+    the six SSS estimates [B, 62] and (lln, lle) [B, 168, 2] as tensors."""
+    dev = cap_stack.device
+    return _detect_impl(
+        cap_stack, tensor(carrier_idx, dev),
+        *_detect_inputs(cells_fc, int(cap_stack.shape[-1]), fs_programmed,
+                        compat, dev), _Roms(dev))
+
+
+def _decide_batch(cells_fc, out, thresh2_n_sigma: float,
+                  fs_programmed: float, compat: str) -> List[Cell]:
+    lln_b = out[6].cpu().numpy().astype(np.float64)
+    lle_b = out[7].cpu().numpy().astype(np.float64)
+    return [_decide_sss(c, lln_b[i], lle_b[i], thresh2_n_sigma, fcr, fcp,
+                        fs_programmed, compat)
+            for i, (c, fcr, fcp) in enumerate(cells_fc)]
+
+
 def sss_detect(cell: Cell, capbuf: torch.Tensor, thresh2_n_sigma: float,
                fc_requested: float, fc_programmed: float,
                fs_programmed: float, return_extras: bool = False,
@@ -360,28 +423,117 @@ def sss_detect(cell: Cell, capbuf: torch.Tensor, thresh2_n_sigma: float,
     searcher.cpp:696-761): the updated Cell (n_id_1, cp_type and
     frame_start set on acceptance), plus with ``return_extras`` a dict of
     the SSS channel estimates and log-likelihood tables as numpy."""
-    dev = capbuf.device
-    n_cap = int(capbuf.shape[0])
-    locs, mask, freq, fs_mix = _getce_prepare(
-        cell, n_cap, fc_requested, fc_programmed, fs_programmed, compat)
-    out = _detect_impl(
-        capbuf[None], torch.zeros(1, dtype=torch.int64, device=dev),
-        torch.from_numpy(locs[None]).to(dev),
-        torch.from_numpy(mask[None]).to(dev), tensor([freq], dev),
-        tensor([fs_mix], dev), torch.tensor([cell.n_id_2], device=dev),
-        _Roms(dev))
-    out = [o[0].cpu().numpy() for o in out]
-    lln = np.asarray(out[6], np.float64)
-    lle = np.asarray(out[7], np.float64)
-    cell_out = _decide_sss(cell, lln, lle, thresh2_n_sigma, fc_requested,
-                           fc_programmed, fs_programmed, compat)
+    cells_fc = [(cell, fc_requested, fc_programmed)]
+    out = _detect_run(cells_fc, capbuf[None], [0], fs_programmed, compat)
+    cell_out = _decide_batch(cells_fc, out, thresh2_n_sigma, fs_programmed,
+                             compat)[0]
     if not return_extras:
         return cell_out
+    out = [o[0].cpu().numpy() for o in out]
     names = ("sss_h1_np_est", "sss_h2_np_est", "sss_h1_nrm_est",
              "sss_h2_nrm_est", "sss_h1_ext_est", "sss_h2_ext_est")
     extras = dict(zip(names, out[:6]))
-    extras.update(log_lik_nrm=lln, log_lik_ext=lle)
+    extras.update(log_lik_nrm=np.asarray(out[6], np.float64),
+                  log_lik_ext=np.asarray(out[7], np.float64))
     return cell_out, extras
+
+
+def sss_detect_getce_sss(cell: Cell, capbuf, fc_requested: float,
+                         fc_programmed: float, fs_programmed: float,
+                         compat: str = "production", device=None):
+    """The SSS channel estimates of one peak for both CP hypotheses
+    (the reference's sss_detect_getce_sss): (h1_np,
+    h2_np, h1_nrm, h2_nrm, h1_ext, h2_ext), each [62] on the capture's
+    device -- the inverse-noise MMSE combines of the even (h1) and odd
+    (h2) half-frames, their noise estimates first."""
+    out = _detect_run([(cell, fc_requested, fc_programmed)],
+                      _capture(capbuf, device)[None], [0], fs_programmed,
+                      compat)
+    return tuple(o[0] for o in out[:6])
+
+
+def sss_detect_ml(cell: Cell, h1_np, h2_np, h1_nrm, h2_nrm, h1_ext, h2_ext):
+    """The ML stage of one peak (reference sss_detect_ml,
+    searcher.cpp:636-693) over the estimates of sss_detect_getce_sss:
+    the log-likelihoods (log_lik_nrm, log_lik_ext) [168, 2] of every
+    N_id_1 x {slot 0|10, swapped} for each CP, on the estimates'
+    device."""
+    dev = h1_np.device
+    try12, try21 = _ml_tables()
+    lln, lle = _ml_impl(
+        *(e[None] for e in (h1_np, h2_np, h1_nrm, h2_nrm, h1_ext, h2_ext)),
+        tensor(try12[cell.n_id_2], dev)[None],
+        tensor(try21[cell.n_id_2], dev)[None])
+    return lln[0], lle[0]
+
+
+def sss_detect_batch(cells: Sequence[Cell], capbuf, thresh2_n_sigma: float,
+                     fc_requested: float, fc_programmed: float,
+                     fs_programmed: float, compat: str = "production",
+                     device=None) -> List[Cell]:
+    """sss_detect over a whole peak list of one capture in one device
+    pass; each peak is decided on the host in float64 as sss_detect
+    decides it, so rejected peaks come back with n_id_1 = -1."""
+    if not cells:
+        return []
+    cells_fc = [(c, fc_requested, fc_programmed) for c in cells]
+    out = _detect_run(cells_fc, _capture(capbuf, device)[None],
+                      [0] * len(cells), fs_programmed, compat)
+    return _decide_batch(cells_fc, out, thresh2_n_sigma, fs_programmed,
+                         compat)
+
+
+def sss_detect_batch_multi(cells: Sequence[Cell], capbufs,
+                           carrier_idx: Sequence[int],
+                           thresh2_n_sigma: float, fs_programmed: float,
+                           compat: str = "production",
+                           device=None) -> List[Cell]:
+    """sss_detect over the peaks of a band scan in one device pass: peak
+    i reads row carrier_idx[i] of the capture stack capbufs [C, n_cap]
+    and carries its own fc_requested / fc_programmed (filled by the peak
+    search), so carriers tuned differently mix in one batch."""
+    if not cells:
+        return []
+    cells_fc = [(c, c.fc_requested, c.fc_programmed) for c in cells]
+    out = _detect_run(cells_fc, _capture(capbufs, device), carrier_idx,
+                      fs_programmed, compat)
+    return _decide_batch(cells_fc, out, thresh2_n_sigma, fs_programmed,
+                         compat)
+
+
+def _foe_run(cells_fc, cap_stack: torch.Tensor, carrier_idx,
+             fs_programmed: float, compat: str) -> List[Cell]:
+    """_foe_impl over a batch of SSS-accepted peaks of the stack
+    cap_stack [C, n_cap], each plan re-padded to the widest peak; the
+    cells with freq_fine set."""
+    dev = cap_stack.device
+    n_cap = int(cap_stack.shape[-1])
+    preps = [_foe_prepare(c, n_cap, fcr, fcp, fs_programmed, compat)
+             for c, fcr, fcp in cells_fc]
+    rows = max(len(p[0]) for p in preps)
+    padded = [_extend_pad(p[0], p[1], rows) for p in preps]
+    sn = np.zeros((len(preps), rows), dtype=np.int64)
+    for i, p in enumerate(preps):
+        sn[i, :len(p[2])] = p[2]
+    M = _foe_impl(
+        cap_stack, tensor(carrier_idx, dev),
+        tensor(np.stack([pl for pl, _ in padded]), dev),
+        tensor(np.stack([pm for _, pm in padded]), dev),
+        tensor([p[3] for p in preps], dev),
+        tensor([p[5] for p in preps], dev),
+        tensor([p[6] for p in preps], dev),
+        tensor(np.array([p[4] for p in preps]), dev),
+        tensor(sn, dev),
+        tensor([c.n_id_1 for c, _r, _p in cells_fc], dev),
+        tensor([c.n_id_2 for c, _r, _p in cells_fc], dev),
+        _Roms(dev)).cpu().numpy()
+    out = []
+    for (c, _r, _p), p, m in zip(cells_fc, preps, M):
+        pss_sss_dist, fs_out = p[3], p[7]
+        freq_fine = c.freq + np.angle(complex(m)) / (2 * np.pi) \
+            * fs_out / pss_sss_dist
+        out.append(c.evolve(freq_fine=float(freq_fine)))
+    return out
 
 
 def pss_sss_foe(cell: Cell, capbuf: torch.Tensor, fc_requested: float,
@@ -389,24 +541,36 @@ def pss_sss_foe(cell: Cell, capbuf: torch.Tensor, fc_requested: float,
                 compat: str = "production") -> Cell:
     """Fine frequency-offset estimation from the PSS/SSS phase difference
     for one SSS-accepted peak (reference searcher.cpp:767-850)."""
-    dev = capbuf.device
-    n_cap = int(capbuf.shape[0])
-    (locs, mask, sn_pad, pss_sss_dist, seg_phase, freq, fs_mix,
-     fs_out) = _foe_prepare(cell, n_cap, fc_requested, fc_programmed,
-                            fs_programmed, compat)
-    M = _foe_impl(
-        capbuf[None], torch.zeros(1, dtype=torch.int64, device=dev),
-        torch.from_numpy(locs[None]).to(dev),
-        torch.from_numpy(mask[None]).to(dev),
-        torch.tensor([pss_sss_dist], device=dev),
-        tensor([freq], dev), tensor([fs_mix], dev),
-        tensor(np.array([seg_phase]), dev),
-        torch.from_numpy(sn_pad[None]).to(dev),
-        torch.tensor([cell.n_id_1], device=dev),
-        torch.tensor([cell.n_id_2], device=dev), _Roms(dev))
-    M = complex(M[0].item())
-    freq_fine = cell.freq + np.angle(M) / (2 * np.pi) * fs_out / pss_sss_dist
-    return cell.evolve(freq_fine=float(freq_fine))
+    return _foe_run([(cell, fc_requested, fc_programmed)], capbuf[None],
+                    [0], fs_programmed, compat)[0]
+
+
+def pss_sss_foe_batch(cells: Sequence[Cell], capbuf, fc_requested: float,
+                      fc_programmed: float, fs_programmed: float,
+                      compat: str = "production",
+                      device=None) -> List[Cell]:
+    """pss_sss_foe over a list of SSS-accepted peaks of one capture in
+    one device pass."""
+    if not cells:
+        return []
+    return _foe_run([(c, fc_requested, fc_programmed) for c in cells],
+                    _capture(capbuf, device)[None], [0] * len(cells),
+                    fs_programmed, compat)
+
+
+def pss_sss_foe_batch_multi(cells: Sequence[Cell], capbufs,
+                            carrier_idx: Sequence[int],
+                            fs_programmed: float,
+                            compat: str = "production",
+                            device=None) -> List[Cell]:
+    """pss_sss_foe over the SSS-accepted peaks of a band scan in one
+    device pass (the capbufs / carrier_idx convention of
+    sss_detect_batch_multi)."""
+    if not cells:
+        return []
+    return _foe_run([(c, c.fc_requested, c.fc_programmed) for c in cells],
+                    _capture(capbufs, device), carrier_idx, fs_programmed,
+                    compat)
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +596,8 @@ def _detect_foe_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2, ind,
     inputs [B]: ind (coarse peak location), k_factor, s_scale (the
     searcher.cpp:735 timescale factor); ``golden`` takes every golden
     difference of _decide_sss and _foe_prepare.  Returns (lln, lle, M,
-    n_id_1, use_norm, late, dist, n_loc)."""
+    n_id_1, use_norm, late, dist, the SSS window starts [B, R] the FOE
+    used, -1 past the last)."""
     n_cap = capbuf.shape[-1]
     ests = _detect_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2, roms)
     lln, lle = ests[6], ests[7]                                 # [B, 168, 2]
@@ -480,7 +645,7 @@ def _detect_foe_impl(capbuf, ci, locs, mask, freq, fs_mix, n_id_2, ind,
     M = _foe_impl(capbuf, ci, foe_locs, foe_mask, dist_i, freq, fs_mix,
                   seg_phase, sn, n_id_1, n_id_2, roms)
     return (lln, lle, M, n_id_1, use_norm, late, dist_i,
-            foe_mask.sum(dim=1))
+            torch.where(foe_mask, foe_locs, -1))
 
 
 def _sss_foe_scalars(cell: Cell, fc_requested: float, fc_programmed: float,
@@ -506,28 +671,17 @@ def sss_foe_batch_fused(cells: Sequence[Cell], capbuf_stack: torch.Tensor,
     if not cells:
         return []
     dev = capbuf_stack.device
-    rdt = real_dtype(dev)
     n_cap = int(capbuf_stack.shape[-1])
-    preps = [_getce_prepare(c, n_cap, c.fc_requested, c.fc_programmed,
-                            fs_programmed, compat) for c in cells]
-    rows = max(len(p[0]) for p in preps)
-    padded = [_extend_pad(locs, mask, rows) for locs, mask, _f, _m in preps]
+    cells_fc = [(c, c.fc_requested, c.fc_programmed) for c in cells]
     sc = [_sss_foe_scalars(c, c.fc_requested, c.fc_programmed,
                            fs_programmed, compat) for c in cells]
-
-    def host(vals, dtype=rdt):
-        return torch.from_numpy(np.asarray(vals)).to(device=dev, dtype=dtype)
-
     out = _detect_foe_impl(
-        capbuf_stack, host(carrier_idx, torch.int64),
-        host(np.stack([pl for pl, _ in padded]), torch.int64),
-        host(np.stack([pm for _, pm in padded]), torch.bool),
-        host([p[2] for p in preps]), host([p[3] for p in preps]),
-        host([c.n_id_2 for c in cells], torch.int64),
-        host([float(c.ind) for c in cells]),
-        host([x[0] for x in sc]), host([x[1] for x in sc]), _Roms(dev),
-        golden=compat == "golden")
-    lln_b, lle_b, M_b, nid1_d, usenorm_d, late_d, dist_d, nloc_d = [
+        capbuf_stack, tensor(carrier_idx, dev),
+        *_detect_inputs(cells_fc, n_cap, fs_programmed, compat, dev),
+        tensor([float(c.ind) for c in cells], dev),
+        tensor([x[0] for x in sc], dev), tensor([x[1] for x in sc], dev),
+        _Roms(dev), golden=compat == "golden")
+    lln_b, lle_b, M_b, nid1_d, usenorm_d, late_d, dist_d, locs_d = [
         o.cpu().numpy() for o in out]
 
     result: List[Cell] = []
@@ -541,17 +695,20 @@ def sss_foe_batch_fused(cells: Sequence[Cell], capbuf_stack: torch.Tensor,
             result.append(cell)
             continue
         # the host's own decision and float64 timing plan must match what
-        # the device FOE'd against before the device M is trusted
+        # the device FOE'd against before the device M is trusted: the
+        # SSS window starts too, since one window a sample off moves
+        # freq_fine by tens of Hz on a weak peak
         host_norm = cell.cp_type is CpType.NORMAL
         ll_host = lln if host_norm else lle
         host_late = bool(ll_host[:, 0].max() <= ll_host[:, 1].max())
-        _hl, h_mask, _sn, h_dist, _ph, _fq, _fm, _fo = _foe_prepare(
+        h_locs, h_mask, _sn, h_dist, _ph, _fq, _fm, _fo = _foe_prepare(
             cell, n_cap, fcr, fcp, fs_programmed, compat)
         if (int(nid1_d[i]) == cell.n_id_1
                 and bool(usenorm_d[i]) == host_norm
                 and bool(late_d[i]) == host_late
                 and int(dist_d[i]) == h_dist
-                and int(nloc_d[i]) == int(np.sum(h_mask))):
+                and np.array_equal(locs_d[i][locs_d[i] >= 0],
+                                   h_locs[h_mask])):
             fs_out = sc[i][2]
             freq_fine = cell.freq + np.angle(complex(M_b[i])) \
                 / (2 * np.pi) * fs_out / h_dist

@@ -126,6 +126,12 @@ def v4_band_kv(starts, margin: int = 0) -> int:
     return kv if int(dev) <= 1 else 0
 
 
+def v4_band_applicable(starts, margin: int = 0) -> bool:
+    """Whether the chunk of fold-start tables ``starts`` takes the fused
+    v4 kernels (v4_band_kv's gate)."""
+    return v4_band_kv(starts, margin) != 0
+
+
 @dataclass
 class BandRoute:
     """How a chunk's front end runs.  kern None: the exact correlation.

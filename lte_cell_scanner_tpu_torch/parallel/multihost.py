@@ -57,13 +57,15 @@ N_REC = len(_FIELDS) + 4  # + cp_type, phich_duration, phich_resource, valid
 
 
 def initialize(coordinator_address: str, num_processes: int,
-               process_id: int) -> None:
+               process_id: int, **kwargs) -> None:
     """Join the process group: gloo, rendezvous at ``HOST:PORT`` (rank 0
-    listens there).  A second call in the same process does nothing."""
+    listens there); ``kwargs`` go to ``init_process_group`` (e.g.
+    ``timeout``).  A second call in the same process does nothing."""
     if dist.is_initialized():
         return
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            **kwargs)
 
 
 def finalize() -> None:

@@ -18,10 +18,13 @@ from ..ops.dsp import interpft_host
 
 
 def awgn(sig: np.ndarray, snr_db: float,
-         rng: Optional[np.random.Generator] = None) -> np.ndarray:
-    """Add complex white Gaussian noise at the given SNR."""
+         rng: Optional[np.random.Generator] = None,
+         signal_power: Optional[float] = None) -> np.ndarray:
+    """Add complex white Gaussian noise at the given SNR, against
+    ``signal_power`` when given, else the mean power of sig."""
     rng = rng or np.random.default_rng()
-    sp = float(np.mean(np.abs(sig) ** 2))
+    sp = signal_power if signal_power is not None \
+        else float(np.mean(np.abs(sig) ** 2))
     npow = sp / (10.0 ** (snr_db / 10.0))
     noise = (rng.normal(size=len(sig)) + 1j * rng.normal(size=len(sig))) \
         * np.sqrt(npow / 2.0)

@@ -266,6 +266,29 @@ def test_stream_ring_is_the_native_one_when_it_loads(monkeypatch,
     assert np.array_equal(raw, (np.arange(raw.size) & 0xFF).astype(np.uint8))
 
 
+def test_blocking_stream_yields_the_async_streams_bytes():
+    """stream(use_async=False): the plain blocking read loop, no reader
+    thread; the same blocks as the asynchronous stream of the same
+    dongle, and the TPU package's blocking loop."""
+    blocks = {}
+    for name, use_async in (("sync", False), ("async", True)):
+        src, lib = make_source(lib=PacedFakeLib(pace=0.0), agc_settle=False)
+        gen = src.stream(block=1500, use_async=use_async, poll_sleep=1e-4)
+        blocks[name] = [next(gen) for _ in range(4)]
+        assert (getattr(src, "_reader", None) is None) == (not use_async)
+        gen.close()
+        src.close()
+    jsrc = jrtlsdr.RtlSdrSource(lib=PacedFakeLib(pace=0.0),
+                                sleep=lambda s: None, agc_settle=False)
+    jgen = jsrc.stream(block=1500, use_async=False)
+    ref = [next(jgen) for _ in range(4)]
+    jsrc.close()
+    for s, a, r in zip(blocks["sync"], blocks["async"], ref):
+        assert len(s) == 1500
+        np.testing.assert_array_equal(s, a)
+        np.testing.assert_array_equal(s, r)
+
+
 def test_no_librtlsdr_is_an_error(monkeypatch):
     monkeypatch.setattr(rtlsdr.ctypes.util, "find_library", lambda n: None)
 

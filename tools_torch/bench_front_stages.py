@@ -90,6 +90,19 @@ def stage_fns(cap0, f_set, dev):
     return fns, kern
 
 
+def timed(fn, bufs, sync):
+    """One window: ``fn`` on each of ``bufs`` back to back, synchronised
+    at the end.  Returns (wall, issue) seconds per call: the window's
+    time to the synchronisation, and the host's time to issue it."""
+    t0 = time.perf_counter()
+    for buf in bufs:
+        fn(buf)
+    t1 = time.perf_counter()
+    sync()
+    t2 = time.perf_counter()
+    return (t2 - t0) / len(bufs), (t1 - t0) / len(bufs)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -140,22 +153,14 @@ def main(argv=None) -> int:
            "samples": len(cap), "inner": args.inner,
            "repeats": args.repeats}
     for name in names:
-        fn = fns[name]
-        fn(bufs[0])                                          # warm-up
+        fns[name](bufs[0])                                   # warm-up
         sync()
-        walls, issues = [], []
-        for k in range(args.repeats):
-            window = bufs[k * args.inner: (k + 1) * args.inner]
-            t0 = time.perf_counter()
-            for buf in window:
-                fn(buf)
-            t1 = time.perf_counter()
-            sync()
-            t2 = time.perf_counter()
-            issues.append((t1 - t0) / args.inner)
-            walls.append((t2 - t0) / args.inner)
-        res[f"{name}_ms"] = 1e3 * statistics.median(walls)
-        res[f"{name}_issue_ms"] = 1e3 * statistics.median(issues)
+        windows = [timed(fns[name], bufs[k * args.inner:
+                                         (k + 1) * args.inner], sync)
+                   for k in range(args.repeats)]
+        res[f"{name}_ms"] = 1e3 * statistics.median(w for w, _ in windows)
+        res[f"{name}_issue_ms"] = 1e3 * statistics.median(
+            i for _, i in windows)
     if args.json:
         print(json.dumps(res))
     else:

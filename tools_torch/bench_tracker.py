@@ -2,7 +2,9 @@
 counterpart of tools/bench_tracker.py.
 
     python3 tools_torch/bench_tracker.py [--cells 4] [--runs 3]
-        [--seconds 5.5] [--sweep] [--async-search] [--device cuda|cpu]
+        [--seconds 5.5] [--snr 12] [--acq-seconds 30] [--block 10000]
+        [--sweep] [--async-search] [--parallel N]
+        [--device-loop auto|on|off] [--profile] [--device cuda|cpu]
         [--json]
 
 Measures the streaming tracker's realtime factor (stream-seconds
@@ -12,9 +14,10 @@ with two antenna ports" in realtime (doc/LTE-Tracker.html):
 
 - N cells x 2 antenna ports from CELL_PLAN, distinct cell IDs and
   non-overlapping frame timings (distinct slot_start), summed at equal
-  power + AWGN at 12 dB, +200 Hz, quantized to the dongle's 8-bit grid
-  (the stream an RTL2832 delivers), in 10000-sample blocks;
-- acquisition streams until all N cells are tracked (untimed), then
+  power + AWGN at --snr dB, +200 Hz, quantized to the dongle's 8-bit
+  grid (the stream an RTL2832 delivers), in ticks of --block samples;
+- acquisition streams until all N cells are tracked (untimed, at most
+  --acq-seconds of stream), then
   ``--runs`` timed segments of ``--seconds`` stream-seconds each run
   through the full event loop (producer framing, the tick's device
   program, RS-window control loops, CE interpolation, MIB re-decodes,
@@ -50,9 +53,6 @@ if str(ROOT) not in sys.path:
 FC = 739e6
 FS = 1.92e6
 CHUNK_MS = 1000
-BLOCK = 10000
-SNR_DB = 12.0
-ACQ_SECONDS = 30.0     # acquisition stream budget before giving up
 
 # distinct (n_id_1, slot_start, sfn0) per cell; slot starts spread over
 # the 10 ms frame so no two cells share symbol framing ticks
@@ -116,18 +116,30 @@ class MultiCellStream:
         return buf[:n]
 
 
-def bench_one(n_cells, runs, seconds, device=None, search_async=False,
-              stream=None, verbose=True) -> dict:
-    """Acquire ``n_cells`` of the stream (MultiCellStream unless
-    ``stream``, any object with take(n), is given), then time ``runs``
-    segments of ``seconds`` stream-seconds.  Returns the realtime
-    factors, the tick split, the worst tick and the cells' state."""
+def bench_one(n_cells, runs, seconds, snr_db=12.0, verbose=True,
+              profile=False, parallel=0, acq_seconds=30.0, device_loop=None,
+              block=10000, device=None, search_async=False,
+              stream=None) -> dict:
+    """Acquire ``n_cells`` of the stream (MultiCellStream at ``snr_db``
+    unless ``stream``, any object with take(n), is given) within
+    ``acq_seconds`` of stream, then time ``runs`` segments of ``seconds``
+    stream-seconds in ticks of ``block`` samples.  ``parallel`` > 1 ticks
+    the cells on a pool of that many threads and ``device_loop`` picks
+    the tick's route (TrackerRunner's ``parallel_cells`` and
+    ``device_loop``: None = the device loop on the card); ``profile``
+    prints cProfile's top entries of the timed segments to stderr.
+    Returns the realtime factors, the tick split, the worst tick and the
+    cells' state."""
     from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
 
-    stream = stream or MultiCellStream(n_cells, SNR_DB)
+    stream = stream or MultiCellStream(n_cells, snr_db)
     runner = TrackerRunner(FC, FC, FS, device=device,
-                           search_async=search_async)
-    block = BLOCK
+                           search_async=search_async,
+                           parallel_cells=parallel, device_loop=device_loop)
+    prof = None
+    if profile:
+        import cProfile
+        prof = cProfile.Profile()
     try:
         t0 = time.perf_counter()
         runner.warmup()
@@ -135,7 +147,7 @@ def bench_one(n_cells, runs, seconds, device=None, search_async=False,
 
         # acquisition (untimed): all N cells tracked
         fed = 0
-        limit = int(ACQ_SECONDS * FS)
+        limit = int(acq_seconds * FS)
         while len(runner.cells) < n_cells:
             runner.process_block(stream.take(block))
             fed += block
@@ -155,18 +167,26 @@ def bench_one(n_cells, runs, seconds, device=None, search_async=False,
         for r in range(runs):
             seg = stream.take(n_blocks * block)
             t_run = time.perf_counter()
+            if prof is not None:
+                prof.enable()
             for i in range(n_blocks):
                 t = time.perf_counter()
                 busy = runner._search_future is not None
                 runner.process_block(seg[i * block: (i + 1) * block])
                 ticks.append((time.perf_counter() - t, busy))
                 searches += runner._last_search_at == runner._samples_fed
+            if prof is not None:
+                prof.disable()
             wall = time.perf_counter() - t_run
             factors.append(n_blocks * block / FS / wall)
             if verbose:
                 print(f"  run {r + 1}: {n_blocks * block / FS:.1f} s stream "
                       f"/ {wall:.3f} s wall = {factors[-1]:.2f}x realtime",
                       file=sys.stderr)
+        if prof is not None:
+            import pstats
+            pstats.Stats(prof, stream=sys.stderr).sort_stats(
+                "cumulative").print_stats(35)
         stream_s = runs * n_blocks * block / FS
         during = [t for t, busy in ticks if busy]
         cells = [{"n_id_cell": tc.n_id_cell, "health": tc.health_pct(),
@@ -186,7 +206,8 @@ def bench_one(n_cells, runs, seconds, device=None, search_async=False,
                 1e3 * max(during) if during else None,
             "ticks_search_in_flight": len(during),
             "searches_integrated": int(searches),
-            "tick_ms_stream": 1e3 * block / FS,
+            "tick_ms_stream": 1e3 * block / FS, "snr_db": snr_db,
+            "parallel_cells": parallel, "device_loop": device_loop,
             "frequency_offset": runner.state.frequency_offset,
             "warmup_s": warmup_s, "acquisition_stream_s": acq_s,
             "tracked": cells}
@@ -234,8 +255,26 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", type=int, default=4)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--seconds", type=float, default=5.5)
+    ap.add_argument("--snr", type=float, default=12.0)
+    ap.add_argument("--acq-seconds", type=float, default=30.0,
+                    help="acquisition stream budget before giving up "
+                         "(co-channel cells interfere; high counts "
+                         "acquire slowly)")
     ap.add_argument("--sweep", action="store_true",
                     help="bench 1..--cells instead of just --cells")
+    ap.add_argument("--block", type=int, default=10000,
+                    help="samples per process_block tick")
+    ap.add_argument("--profile", action="store_true",
+                    help="cProfile the timed segments, print top stats")
+    ap.add_argument("--parallel", type=int, default=0,
+                    help=">1: per-cell tracker ticks on a thread pool "
+                         "(the reference's thread-per-cell layout; only "
+                         "off the device loop)")
+    ap.add_argument("--device-loop", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="the tick's route: the device loop (one upload, "
+                         "one program, one download per tick) or the "
+                         "batched host path; auto = on on the card")
     ap.add_argument("--async-search", action="store_true",
                     help="the background searcher on its worker thread")
     ap.add_argument("--device", default=None,
@@ -250,7 +289,12 @@ def main(argv=None) -> int:
     counts = range(1, args.cells + 1) if args.sweep else [args.cells]
     for n in counts:
         print(f"[{n} cell(s)]", file=sys.stderr)
-        res = bench_one(n, args.runs, args.seconds, device=args.device,
+        res = bench_one(n, args.runs, args.seconds, args.snr,
+                        profile=args.profile, parallel=args.parallel,
+                        acq_seconds=args.acq_seconds,
+                        device_loop={"auto": None, "on": True,
+                                     "off": False}[args.device_loop],
+                        block=args.block, device=args.device,
                         search_async=args.async_search)
         if args.json:
             print(json.dumps({"metric": "tracker_realtime_factor",

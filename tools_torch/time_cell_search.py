@@ -1,5 +1,6 @@
-"""Time the port's single-carrier ``cell_search`` on one NVIDIA GPU, for
-comparing two versions of the port within one machine session.
+"""Time the port's single-carrier ``cell_search`` and its band scan on one
+NVIDIA GPU, for comparing two versions of the port within one machine
+session.
 
     python3 tools_torch/time_cell_search.py [--root DIR] [--label NAME]
 
@@ -10,8 +11,12 @@ host-side stages drift between sessions.  For the two-cell 739 MHz
 capture, float (bf16 kernel) and on the 8-bit ADC grid (int8 kernel), at
 +-100 ppm: the wall seconds of ``cell_search`` synchronised at both ends
 (no stage timings), each of ``--reps`` runs after two warm-ups, and one
-run under torch.profiler (device operations, device-busy seconds).
-Prints one JSON line per capture.  Exits non-zero without a CUDA device.
+run under torch.profiler (device operations, device-busy seconds).  Then
+``scan_band`` over the 101-carrier band of ``sim/scenarios.py::
+band_captures`` (float and ADC grid, chunks of 64, the carriers_per_s of
+``chip_smoke.py`` phase 7): carriers per second of each of ``--reps``
+runs after one warm-up.  Prints one JSON line per capture and per band.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,7 +71,9 @@ def main() -> int:
     from lte_cell_scanner_tpu_torch.constants import FS_WORK
     from lte_cell_scanner_tpu_torch.models.search import (
         cell_search, default_f_search_set)
+    from lte_cell_scanner_tpu_torch.parallel.carriers import scan_band
     from lte_cell_scanner_tpu_torch.sim.scenarios import (adc_quantize,
+                                                          band_captures,
                                                           two_cell_capture)
 
     f_set = default_f_search_set(FC, PPM)
@@ -91,6 +98,24 @@ def main() -> int:
             "s_per_carrier_median": statistics.median(totals),
             "totals": totals, "profiled_device_ops": n_ops,
             "profiled_busy_s": busy, "profiled_wall_s": wall}), flush=True)
+
+    for name, band in zip(("float band", "adc band"), band_captures()):
+        def run_band():
+            return scan_band(band, f_set, FS_WORK, device="cuda",
+                             max_carriers_per_program=64)
+        lists = run_band()
+        totals = []
+        for _ in range(args.reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_band()
+            torch.cuda.synchronize()
+            totals.append(time.perf_counter() - t0)
+        print(json.dumps({
+            "label": args.label, "capture": name,
+            "cells": sorted(c.n_id_cell() for cells in lists for c in cells),
+            "carriers_per_s_median": len(band) / statistics.median(totals),
+            "totals": totals}), flush=True)
     return 0
 
 
