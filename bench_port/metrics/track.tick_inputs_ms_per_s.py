@@ -1,0 +1,13 @@
+"""Runner.timings stage.inputs: the tick's symbol windows and metadata
+staged for the wire, ms per stream-second."""
+
+from bench_port import readers
+
+LAYER = "tracker tick (tracker/device_loop.py)"
+UNIT = "ms/s"
+MOVES = "realtime_factor"
+SOURCE = "program_span"
+
+
+def read(rec):
+    return readers.span_ms_per_stream_s(rec, "stage.inputs")

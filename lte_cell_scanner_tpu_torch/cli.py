@@ -135,7 +135,6 @@ def _search_multihost(args, fc_search_set, f_search_set, cfg,
     from .constants import FS_WORK
     from .device import resolve_device
     from .parallel import multihost
-    from .utils.debug import profile_report
     # decided the same on every process from the band alone, BEFORE
     # joining: a check after joining would leave the peers waiting in
     # the first collective
@@ -172,9 +171,7 @@ def _search_multihost(args, fc_search_set, f_search_set, cfg,
         multihost.finalize()
     if args.process_id == 0:
         _print_cells(merged, args.correction)
-        if args.profile:
-            print()
-            print(profile_report())
+        _print_profile(args)
     return 0
 
 
@@ -186,7 +183,7 @@ def cmd_search(args) -> int:
     from .models.search import (SearchConfig, cell_search, dedup,
                                 default_f_search_set)
     from .parallel.carriers import make_carrier_mesh, scan_band
-    from .utils.debug import enable_profiling, profile_report
+    from .utils.debug import enable_profiling
     if args.brief:
         args.verbose = 0
     if args.profile:
@@ -291,9 +288,7 @@ def cmd_search(args) -> int:
                     print(f"  Detected a cell! {c}")
             all_cells.append(cells)
     _print_cells(dedup(all_cells), args.correction)
-    if args.profile:
-        print()
-        print(profile_report())
+    _print_profile(args)
     return 0
 
 
@@ -307,9 +302,12 @@ def cmd_track(args) -> int:
     from .tracker import TrackerRunner
     from .tracker.display import render
     from .tracker.runner import kalibrate
+    from .utils.debug import enable_profiling
 
     if args.brief:
         args.verbose = 0
+    if args.profile:
+        enable_profiling()
     if args.ppm < 0:
         print("Error: ppm value must be positive")
         return 1
@@ -395,6 +393,7 @@ def cmd_track(args) -> int:
         finally:
             runner.close()
         print(render(runner.state, runner.cells, plots=args.expert))
+        _print_profile(args)
         return 0
 
     n_blocks = 0
@@ -416,7 +415,15 @@ def cmd_track(args) -> int:
     finally:
         runner.close()
     print(render(runner.state, runner.cells, plots=args.expert))
+    _print_profile(args)
     return 0
+
+
+def _print_profile(args) -> None:
+    from .utils.debug import profile_report
+    if args.profile:
+        print()
+        print(profile_report())
 
 
 def cmd_check(args) -> int:
@@ -545,6 +552,10 @@ def _add_track_parser(sub) -> None:
     pt.add_argument("--no-tui", action="store_true",
                     help="disable the interactive curses dashboard even "
                          "on a tty (plain periodic prints)")
+    pt.add_argument("--profile", action="store_true",
+                    help="print a wall-time table of the tracker's spans "
+                         "(kalibrate and warm-up searches, the tick, its "
+                         "control loops) when the tracker stops")
     pt.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
     for i in range(1, 10):

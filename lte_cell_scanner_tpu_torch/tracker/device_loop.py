@@ -31,13 +31,13 @@ the host, which knows every label; masked rows carry a zero table value
 
 from __future__ import annotations
 
-import time
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.debug import stage
 from .batched import (_get_fd_block_core, _get_fd_core,
                       _stage_block_inputs, planes_to_complex, upload,
                       wire_planes)
@@ -113,53 +113,57 @@ def _plans(cell_pdus):
 
 def stage_tick(cell_pdus: Sequence[Tuple[object, object]], state,
                raw_block: np.ndarray = None, block_seq: int = -1,
-               device=None):
+               device=None, timings: dict = None):
     """Host staging of one tick and its single upload.  Returns (the
     arguments of _tick_program, plans, the packed output's (B, P, NR,
-    NQ))."""
+    NQ)).  ``timings``: the spans "stage.inputs" (the symbols' windows
+    and metadata as they go on the wire), "stage.plan" (the plans and
+    gather tables) and "stage.upload" (utils/debug.py::stage)."""
     dev = resolve_device(device)
     wdt = np.float64
     B = len(cell_pdus)
-    ext, data, starts, fo, late, nse, _valid, init_phase = \
-        _stage_block_inputs(cell_pdus, raw_block, block_seq)
-    S = fo.shape[1]
-    plans = _plans(cell_pdus)
-    nr_max = max([1] + [len(s) for p in plans for s in p[3]])
-    nq_max = max([1] + [len(p[4]) for p in plans])
-    NR = _bucket_up(nr_max)
-    NQ = _bucket_up(nq_max)
-    P = max(proc.cell.n_ports for proc, _ in cell_pdus)
+    with stage("stage.inputs", timings=timings, host=True):
+        ext, data, starts, fo, late, nse, _valid, init_phase = \
+            _stage_block_inputs(cell_pdus, raw_block, block_seq)
+        if ext is not None:
+            head = [wire_planes(ext), starts]
+        else:
+            head = [np.ascontiguousarray(
+                data.view(np.float64).reshape(data.shape + (2,)), wdt)]
+    with stage("stage.plan", timings=timings, host=True):
+        S = fo.shape[1]
+        plans = _plans(cell_pdus)
+        nr_max = max([1] + [len(s) for p in plans for s in p[3]])
+        nq_max = max([1] + [len(p[4]) for p in plans])
+        NR = _bucket_up(nr_max)
+        NQ = _bucket_up(nq_max)
+        P = max(proc.cell.n_ports for proc, _ in cell_pdus)
 
-    cols = 6 * np.arange(12)
-    rs_flat = np.zeros((B, P, NR, 12), np.int64)
-    rs_tab = np.zeros((B, P, NR, 12, 2), wdt)
-    spec_rows = np.zeros((B, NQ), np.int64)
-    spec_mask = np.zeros((B, NQ), wdt)
-    for b, ((proc, _chunk), plan) in enumerate(zip(cell_pdus, plans)):
-        slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
-        for p, sel in enumerate(rs_sel):
-            n = len(sel)
-            rs_flat[b, p, :n] = ((b * S + sel) * 72)[:, None] \
-                + sh_all[sel, p][:, None] + cols
-            tab = proc._rs_conj[slots_a[sel], syms_a[sel]]      # [n, 12]
-            rs_tab[b, p, :n, :, 0] = tab.real
-            rs_tab[b, p, :n, :, 1] = tab.imag
-        spec_rows[b, : len(spec_sel)] = b * S + spec_sel
-        spec_mask[b, : len(spec_sel)] = 1.0
+        cols = 6 * np.arange(12)
+        rs_flat = np.zeros((B, P, NR, 12), np.int64)
+        rs_tab = np.zeros((B, P, NR, 12, 2), wdt)
+        spec_rows = np.zeros((B, NQ), np.int64)
+        spec_mask = np.zeros((B, NQ), wdt)
+        for b, ((proc, _chunk), plan) in enumerate(zip(cell_pdus, plans)):
+            slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
+            for p, sel in enumerate(rs_sel):
+                n = len(sel)
+                rs_flat[b, p, :n] = ((b * S + sel) * 72)[:, None] \
+                    + sh_all[sel, p][:, None] + cols
+                tab = proc._rs_conj[slots_a[sel], syms_a[sel]]  # [n, 12]
+                rs_tab[b, p, :n, :, 0] = tab.real
+                rs_tab[b, p, :n, :, 1] = tab.imag
+            spec_rows[b, : len(spec_sel)] = b * S + spec_sel
+            spec_mask[b, : len(spec_sel)] = 1.0
 
-    fln = np.stack([fo, late, nse], axis=1).astype(wdt)     # [B, 3, S]
-    tail = [fln, init_phase.astype(wdt), rs_flat, rs_tab, spec_rows,
-            spec_mask]
-    if ext is not None:
-        planes, starts_t, *rest = upload(
-            [wire_planes(ext), starts] + tail, dev)
-        head = (planes, None, starts_t)
-    else:
-        d, *rest = upload([np.ascontiguousarray(
-            data.view(np.float64).reshape(data.shape + (2,)), wdt)] + tail,
-            dev)
-        head = (None, d, None)
-    fln_t, ph_t, rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t = rest
+        fln = np.stack([fo, late, nse], axis=1).astype(wdt)  # [B, 3, S]
+        tail = [fln, init_phase.astype(wdt), rs_flat, rs_tab, spec_rows,
+                spec_mask]
+    with stage("stage.upload", timings=timings):
+        *head, fln_t, ph_t, rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t \
+            = upload(head + tail, dev)
+    head = (head[0], None, head[1]) if ext is not None \
+        else (None, head[0], None)
     args = head + (fln_t, ph_t, float(state.fc_requested),
                    float(state.fc_programmed), float(state.fs_programmed),
                    rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t)
@@ -202,28 +206,27 @@ def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
     The planner reads the processors' (slot, sym) counters; the
     processors advance them when applying the tick.  ``timings``: if a
     dict is given, the wall seconds of the host staging with its upload
-    ("stage"), the device program, synchronised ("program"), the
-    download ("download") and the host control loops ("control") are
-    added to it."""
-    t0 = time.perf_counter()
-    args, plans, shape = stage_tick(cell_pdus, state, raw_block, block_seq,
-                                    device)
-    t1 = time.perf_counter()
-    out = _tick_program(*args)
-    if timings is not None and out.device.type == "cuda":
-        torch.cuda.current_stream(out.device).synchronize()
-    t2 = time.perf_counter()
-    packed = download(out)
-    t3 = time.perf_counter()
-    ce_raw, spec_rows, final = unpack(packed, shape)
-    for b, ((proc, chunk), plan) in enumerate(zip(cell_pdus, plans)):
-        slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
-        rows = [ce_raw[b, p, : len(sel)] for p, sel in enumerate(rs_sel)]
-        proc.process_device(chunk, slots_a, syms_a, sh_all, rs_sel, rows,
-                            spec_sel, spec_rows[b, : len(spec_sel)],
-                            float(final[b]))
-    if timings is not None:
-        t4 = time.perf_counter()
-        for k, v in (("stage", t1 - t0), ("program", t2 - t1),
-                     ("download", t3 - t2), ("control", t4 - t3)):
-            timings[k] = timings.get(k, 0.0) + v
+    ("stage", split as stage_tick says), the device program,
+    synchronised ("program"; its launch alone "program.launch"), the
+    download ("download") and the host control loops ("control", split
+    as process_device says) are added to it (utils/debug.py::stage)."""
+    with stage("stage", timings=timings):
+        args, plans, shape = stage_tick(cell_pdus, state, raw_block,
+                                        block_seq, device, timings=timings)
+    with stage("program", timings=timings) as sp:
+        with stage("program.launch", timings=timings):
+            out = _tick_program(*args)
+        if sp.on and out.device.type == "cuda":
+            torch.cuda.current_stream(out.device).synchronize()
+    with stage("download", timings=timings):
+        packed = download(out)
+    with stage("control", timings=timings, host=True):
+        ce_raw, spec_rows, final = unpack(packed, shape)
+        for b, ((proc, chunk), plan) in enumerate(zip(cell_pdus, plans)):
+            slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
+            rows = [ce_raw[b, p, : len(sel)]
+                    for p, sel in enumerate(rs_sel)]
+            proc.process_device(chunk, slots_a, syms_a, sh_all, rs_sel,
+                                rows, spec_sel,
+                                spec_rows[b, : len(spec_sel)],
+                                float(final[b]), timings=timings)

@@ -69,6 +69,9 @@ def render(state: GlobalState, cells: List[TrackedCell],
         cb = next((k for k in range(1, 12) if abs(c.ac_fd[k]) <= 0.5), -1)
         cb_txt = ">990 kHz" if cb < 0 else f"{cb * 90:4d} kHz"
         lines.append(f"    coherence bw {cb_txt}")
+        if c.mib_redecodes:
+            lines.append(f"    MIB passes/re-decodes "
+                         f"{c.mib_passes}/{c.mib_redecodes}")
         if plots and np.isfinite(c.sync_np_blank_av):
             lines.append(f"    UOS pwr {_db10(c.sync_np_blank_av):6.1f} dB")
         if np.isfinite(c.sync_sp_av) and np.isfinite(c.sync_np_av) \

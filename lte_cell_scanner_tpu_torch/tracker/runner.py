@@ -17,7 +17,6 @@ CPU by itself: without a card the first device operation raises.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, Iterable, List, Optional
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 from ..cell import Cell
 from ..device import resolve_device
 from ..models.search import SearchConfig, cell_search, default_f_search_set
+from ..utils.debug import stage
 from .cell_tracker import TrackedCellProcessor
 from .producer import Producer
 from .searcher import search_once
@@ -145,9 +145,10 @@ class TrackerRunner:
         # ~6% special symbol rows download.  None = auto: on for a CUDA
         # device; the CPU runs the dense path.
         self.device_loop = device_loop
-        # if a dict: host wall seconds by part of the tick, summed
-        # (producer, pop, stage/program/download/control in device-loop
-        # mode, fd + control otherwise, search for inline searches)
+        # if a dict: host wall seconds by span of the tick, summed
+        # (producer, pop, stage/program/download/control and their
+        # nested spans in device-loop mode, fd + control otherwise,
+        # search for inline searches; utils/debug.py::stage)
         self.timings: Optional[dict] = None
 
     def _use_device_loop(self) -> bool:
@@ -161,12 +162,6 @@ class TrackerRunner:
         if self.search_mesh is not None:
             return {"mesh": self.search_mesh}
         return {"device": self.device}
-
-    def _add_time(self, key: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        if self.timings is not None:
-            self.timings[key] = self.timings.get(key, 0.0) + t1 - t0
-        return t1
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
@@ -206,10 +201,10 @@ class TrackerRunner:
     # ------------------------------------------------------------------
     def process_block(self, samples: np.ndarray) -> None:
         """Feed one block of complex samples through the whole graph."""
-        t0 = time.perf_counter()
+        timings = self.timings
         self._samples_fed += len(samples)
-        self.producer.process(samples, self.cells)
-        t0 = self._add_time("producer", t0)
+        with stage("producer", timings=timings, host=True):
+            self.producer.process(samples, self.cells)
 
         # drive the per-cell trackers: pop each cell's pending symbols as
         # ONE struct-of-arrays chunk, run the get_fd stage (mixer + DFT +
@@ -220,13 +215,13 @@ class TrackerRunner:
         # few ticks instead of staging one huge batch (the backpressure
         # dump in the producer bounds total fifo growth).
         cap = 1024
-        work = []
-        for tc in self.cells:
-            fifo = self.producer.fifos.get(tc.n_id_cell)
-            chunk = fifo.pop_upto(cap) if fifo is not None else None
-            work.append((tc, fifo, chunk))
-        active = [(tc, ch) for tc, _, ch in work if ch is not None]
-        t0 = self._add_time("pop", t0)
+        with stage("pop", timings=timings, host=True):
+            work = []
+            for tc in self.cells:
+                fifo = self.producer.fifos.get(tc.n_id_cell)
+                chunk = fifo.pop_upto(cap) if fifo is not None else None
+                work.append((tc, fifo, chunk))
+            active = [(tc, ch) for tc, _, ch in work if ch is not None]
         if active and self._use_device_loop():
             # device-loop mode: demod + CRS extraction on the device,
             # the processors' host f64 control loops run on the
@@ -245,7 +240,7 @@ class TrackerRunner:
                      for tc, ch in active]
             batched_tick_extract(batch, self.state, raw_block=samples,
                                  block_seq=self.producer.block_seq,
-                                 device=self.device, timings=self.timings)
+                                 device=self.device, timings=timings)
         elif self.parallel_cells > 1 and len(active) > 1:
             from .batched import batched_get_fd
 
@@ -272,13 +267,14 @@ class TrackerRunner:
                 # raw-block staging: the device receives THIS tick's
                 # stream once + per-symbol start indices and gathers
                 # every cell's windows itself
-                outs = batched_get_fd(
-                    batch, self.state, raw_block=samples,
-                    block_seq=self.producer.block_seq, device=self.device)
-                t0 = self._add_time("fd", t0)
-                for (proc, ch), fd in zip(batch, outs):
-                    proc.process(ch, fd_syms=fd)
-                self._add_time("control", t0)
+                with stage("fd", timings=timings):
+                    outs = batched_get_fd(
+                        batch, self.state, raw_block=samples,
+                        block_seq=self.producer.block_seq,
+                        device=self.device)
+                with stage("control", timings=timings, host=True):
+                    for (proc, ch), fd in zip(batch, outs):
+                        proc.process(ch, fd_syms=fd, timings=timings)
         for tc, fifo, chunk in work:
             if fifo is not None:
                 tc.fifo_depth = len(fifo)   # post-drain depth for the dash
@@ -302,13 +298,12 @@ class TrackerRunner:
                     self._search_future = self._pool().submit(
                         self._search_job, capbuf, late, had_cells)
                 else:
-                    t0 = time.perf_counter()
-                    new_cells = search_once(
-                        self.producer.capbuf, self.producer.capbuf_late,
-                        self.state, self.cells, self.search_config,
-                        **self._search_place())
-                    self._integrate_search(new_cells, had_cells)
-                    self._add_time("search", t0)
+                    with stage("search", timings=timings):
+                        new_cells = search_once(
+                            self.producer.capbuf, self.producer.capbuf_late,
+                            self.state, self.cells, self.search_config,
+                            **self._search_place())
+                        self._integrate_search(new_cells, had_cells)
             elif (self.producer.capture_idle()
                   and self._search_future is None and self._search_due()):
                 self.producer.request_capture()

@@ -70,6 +70,12 @@ class TrackedCell:
 
     # measurements (reference meas_mutex block, LTE-Tracker.h:100-123)
     mib_decode_failures: float = 0.0
+    # the 40 ms MIB re-decodes (cell_tracker.py::_mib_try_decode): the
+    # attempts at 16 PBCH symbols, those that passed (CRC, bandwidth and
+    # PHICH), and the 24 bits the last attempt decoded
+    mib_redecodes: int = 0
+    mib_passes: int = 0
+    mib_bits: Optional[np.ndarray] = None
     crs_sp_raw: Optional[np.ndarray] = None
     crs_np: Optional[np.ndarray] = None
     crs_tp_av: Optional[np.ndarray] = None

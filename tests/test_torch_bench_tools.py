@@ -82,7 +82,8 @@ def test_bench_tracker_holds_two_cells(capsys):
     assert sorted(c["n_id_cell"] for c in res["tracked"]) == [271, 277]
     assert all(c["mib_synced"] for c in res["tracked"])
     assert abs(res["frequency_offset"] - 200.0) < 50.0
-    assert {"producer", "control"} <= set(res["split_ms_per_stream_s"])
+    assert {"producer", "control", "control.phase_c", "control.mib"} \
+        <= set(res["split_ms_per_stream_s"])
 
 
 def test_bench_tracker_device_reports_every_shape(capsys):

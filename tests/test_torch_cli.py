@@ -6,7 +6,8 @@ grid of ``-p 5`` -- as a raw rtl_sdr u8 file (on the 8-bit grid, with a
 few saturated 255 bytes) and as an .it file goes through both CLIs: the
 printed cell tables must be equal, line for line.  Record then replay
 must print the same table; the argument checks print the TPU CLI's
-messages in its order.
+messages in its order.  ``track --profile`` prints the tracker's
+spans as a nested table.
 """
 
 import json
@@ -153,6 +154,32 @@ def test_profile_brief_and_backend_names(capsys):
     rc, plain, _ = _run(cli.main, argv, capsys)
     assert rc == 0 and "Examining center frequency 739 MHz" in plain
     assert _table(plain) == _table(out.split("\n\nstage")[0])
+
+
+def test_track_profile_nests_the_tracker_spans(capsys):
+    """``track --profile`` prints the span table when the tracker stops:
+    each span under the one that enclosed it (the CPU's dense tick:
+    control.phase_c in control, control.mib in control.phase_c, the
+    searcher's stages in search), shares of the top-level spans' sum."""
+    argv = ["track", "-f", "739e6", "--sim", "--duration", "0.3",
+            "--no-tui", "--no-kalibrate", "--no-warmup", "--device", "cpu",
+            "-b", "--profile"]
+    try:
+        rc, out, _ = _run(cli.main, argv, capsys)
+    finally:
+        tdebug.enable_profiling(False)
+    assert rc == 0
+    table = out.split("\n\nstage")[1].splitlines()[1:]
+    rows = {ln.split()[0]: ln for ln in table}
+    depth = {k: (len(ln) - len(ln.lstrip())) // 2 for k, ln in rows.items()}
+    assert {"producer": 0, "pop": 0, "fd": 0, "control": 0, "search": 0,
+            "control.phase_c": 1, "control.mib": 2,
+            "xcorr_pss": 1}.items() <= depth.items()
+    assert table.index(rows["control.mib"]) \
+        == table.index(rows["control.phase_c"]) + 1
+    share = sum(float(ln.split()[-1].rstrip("%"))
+                for ln in table if not ln.startswith(" "))
+    assert abs(share - 100.0) < 0.1 * len(table)
 
 
 def test_bench_torch_on_the_cpu_prints_its_keys(capture_files, capsys):

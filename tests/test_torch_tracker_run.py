@@ -13,6 +13,9 @@ rtol 1e-6 / atol 1e-9.  Then the structural cases through the device
 loop (a 4-port cell and an extended-CP cell), the bucketed shapes (the
 same trajectory with every bucket set to 1), the asynchronous searcher,
 the per-cell worker pool against the serial run, cell drop, backpressure, and the card as the default device.
+The tick's spans (utils/debug.py::stage): every key in ``timings``,
+nested spans within their parent, host spans as profiler ranges; and the
+cells' MIB re-decode counters against a watch of the re-decodes.
 """
 
 import dataclasses
@@ -29,6 +32,7 @@ from lte_cell_scanner_tpu_torch.constants import CELL_DROP_THRESHOLD
 from lte_cell_scanner_tpu_torch.interop import tracked_cell_from_fields
 from lte_cell_scanner_tpu_torch.tracker import TrackerRunner
 from lte_cell_scanner_tpu_torch.tracker import batched as tb
+from lte_cell_scanner_tpu_torch.tracker import cell_tracker as tct
 from lte_cell_scanner_tpu_torch.tracker import device_loop as tdl
 from lte_cell_scanner_tpu_torch.tracker.producer import Producer
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState
@@ -150,13 +154,94 @@ def test_bucketed_shapes_change_no_output(runs, sig, monkeypatch):
             ref.processors[tr.n_id_cell].bulk_phase_offset
 
 
-def test_tick_timings_cover_the_tick(sig):
+@pytest.fixture(scope="module")
+def watched(sig):
+    """A device-loop run with its spans in ``runner.timings`` and every
+    MIB re-decode watched as the benchmark's tracker cell watches it: the
+    method through each processor's instance attribute, the 24 bits
+    through ``cell_tracker.crc_parity``.  Returns (runner, {cell id:
+    [(passed, bits)]})."""
+    crc = tct.crc_parity
+    bits = [None]
+
+    def crc_watch(a, kind):
+        bits[0] = np.array(a, dtype=np.uint8)
+        return crc(a, kind)
+
+    def watch(proc, out):
+        def watched_decode():
+            before = len(proc.mib_fifo)
+            bits[0] = None
+            ok = type(proc)._mib_try_decode(proc)
+            if before == 16:
+                out.append((bool(ok) and proc.mib_fifo_synchronized
+                            and proc.cell.mib_decode_failures == 0
+                            and len(proc.mib_fifo) == before - 16,
+                            bits[0]))
+            return ok
+        proc._mib_try_decode = watched_decode
+
     runner = TrackerRunner(FC, FC, FS, device_loop=True, device="cpu")
     runner.timings = {}
-    _feed(runner, sig)
-    assert set(runner.timings) == {"producer", "pop", "stage", "program",
-                                   "download", "control", "search"}
+    decodes = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tct, "crc_parity", crc_watch)
+        for i in range(0, len(sig), 10000):
+            runner.process_block(sig[i: i + 10000])
+            for cid, proc in runner.processors.items():
+                if cid not in decodes:
+                    watch(proc, decodes.setdefault(cid, []))
+    return runner, decodes
+
+
+def test_tick_timings_cover_the_tick(watched):
+    runner, _ = watched
+    assert set(runner.timings) == {
+        "producer", "pop", "stage", "program", "download", "control",
+        "search", "control.rs", "control.phase_c", "control.mib",
+        "stage.inputs", "stage.plan", "stage.upload", "program.launch"}
     assert all(v > 0 for v in runner.timings.values())
+
+
+@pytest.mark.parametrize("parent, children", [
+    ("control", ("control.rs", "control.phase_c")),
+    ("control.phase_c", ("control.mib",)),
+    ("stage", ("stage.inputs", "stage.plan", "stage.upload")),
+    ("program", ("program.launch",))])
+def test_nested_spans_fit_in_their_parent(watched, parent, children):
+    t = watched[0].timings
+    assert 0 < sum(t[c] for c in children) <= t[parent]
+
+
+def test_mib_counters_match_a_watch_of_the_redecodes(watched):
+    """The program's own count of its MIB re-decodes, of those that
+    passed and of the last one's bits, against the benchmark's watch."""
+    runner, decodes = watched
+    assert [c.n_id_cell for c in runner.cells] == [277]
+    for tc in runner.cells:
+        seen = decodes[tc.n_id_cell]
+        assert tc.mib_redecodes == len(seen) > 0
+        assert tc.mib_passes == sum(ok for ok, _ in seen) > 0
+        np.testing.assert_array_equal(tc.mib_bits, seen[-1][1])
+        assert tc.mib_bits.shape == (24,)
+
+
+def test_host_spans_are_profiler_ranges(sig, runs):
+    """Under a recording torch.profiler, the spans that enclose no device
+    work are host ranges of their names; the spans around device work
+    open none.  With no sink on (the runs of the ``runs`` fixture),
+    ``timings`` stays None."""
+    assert runs[True][1].timings is None
+    runner = TrackerRunner(FC, FC, FS, device_loop=True, device="cpu")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        _feed(runner, sig)
+    assert runner.timings is None
+    names = {e.name for e in prof.events()}
+    assert {"producer", "pop", "control", "control.rs", "control.phase_c",
+            "control.mib", "stage.inputs", "stage.plan"} <= names
+    assert not names & {"stage", "stage.upload", "program",
+                        "program.launch", "download", "search"}
 
 
 def test_async_searcher_acquires_and_tracks(sig):

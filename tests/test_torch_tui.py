@@ -10,7 +10,9 @@ package's, on the CPU.
   does;
 - ``track --sim --duration 0.5 --no-tui --device cpu`` prints the TPU
   CLI's output on every line but the "Dongle FO:" lines, which carry the
-  searcher's cycle time in wall seconds; and the argument checks.
+  searcher's cycle time in wall seconds, and the port's "MIB
+  passes/re-decodes" lines, which the TPU package lacks; and the
+  argument checks.
 """
 
 import dataclasses
@@ -159,9 +161,23 @@ def _run(main, argv, capsys):
     return rc, out.out
 
 
+def test_render_shows_the_mib_redecode_counters():
+    """A cell with MIB re-decodes shows its passes over its re-decodes
+    under its row; a cell without any shows no such line."""
+    _jgs, _jcells, tgs, tcells = _states()
+    tcells[0].mib_redecodes, tcells[0].mib_passes = 12, 11
+    lines = tdisplay.render(tgs, tcells).splitlines()
+    mib = [ln for ln in lines if ln.startswith("    MIB ")]
+    assert mib == ["    MIB passes/re-decodes 11/12"]
+    row = lines.index(mib[0])
+    assert lines[row - 1].startswith("    coherence bw ")
+    assert lines[row - 2].startswith("  Cell 277 ")
+
+
 def test_cli_track_prints_the_tpu_cli_dashboard(capsys):
     """Lines excluded from the comparison: those starting "Dongle FO:"
-    (the searcher cycle time, wall seconds)."""
+    (the searcher cycle time, wall seconds) and the port's own "MIB
+    passes/re-decodes" lines."""
     argv = ["track", "-f", "739e6", "--sim", "--duration", "0.5",
             "--no-tui"]
     rc, out = _run(cli.main, argv + ["--device", "cpu"], capsys)
@@ -170,8 +186,11 @@ def test_cli_track_prints_the_tpu_cli_dashboard(capsys):
 
     def kept(text):
         return [ln for ln in text.splitlines()
-                if not ln.startswith("Dongle FO:")]
+                if not ln.startswith(("Dongle FO:", "    MIB "))]
     assert kept(out) == kept(jout)
+    assert any(ln.startswith("    MIB passes/re-decodes ")
+               for ln in out.splitlines())
+    assert not any(ln.startswith("    MIB ") for ln in jout.splitlines())
     assert sum(ln.startswith("Dongle FO:") for ln in out.splitlines()) == \
         sum(ln.startswith("Dongle FO:") for ln in jout.splitlines()) == 1
     assert "  Cell 277  ports 2  CP N  nRB   6" in out

@@ -28,9 +28,14 @@ with two antenna ports" in realtime (doc/LTE-Tracker.html):
   1..N cells.
 
 Each result also carries the tick's time split over the timed segments
-in ms per stream-second (producer, pop, stage = host staging and the
-one upload, program = the device program, synchronised, download,
-control = host control loops, search = inline searches), the worst
+in ms per stream-second, the spans of ``TrackerRunner.timings``
+(utils/debug.py::stage): producer, pop, stage = host staging and the
+one upload (nested in it stage.inputs, stage.plan, stage.upload),
+program = the device program, synchronised (program.launch, its
+launch), download, control = host control loops (control.rs, the
+RS-window chain; control.phase_c and in it control.mib, the MIB
+re-decodes), search = inline searches; off the device loop fd and
+control (control.phase_c, control.mib).  It carries the worst
 tick, the cells' health and the frequency-offset register.  On the CPU
 (``--device cpu``) the numbers describe the host, not any card.  Prints
 one line per cell count, or one JSON line per cell count with --json.
