@@ -393,7 +393,7 @@ def cmd_track(args) -> int:
         finally:
             runner.close()
         print(render(runner.state, runner.cells, plots=args.expert))
-        _print_profile(args)
+        _print_track_profile(args)
         return 0
 
     n_blocks = 0
@@ -415,7 +415,7 @@ def cmd_track(args) -> int:
     finally:
         runner.close()
     print(render(runner.state, runner.cells, plots=args.expert))
-    _print_profile(args)
+    _print_track_profile(args)
     return 0
 
 
@@ -424,6 +424,17 @@ def _print_profile(args) -> None:
     if args.profile:
         print()
         print(profile_report())
+
+
+def _print_track_profile(args) -> None:
+    """The span table, then how the tick's device program ran
+    (tracker/device_loop.py::tick_counts)."""
+    from .tracker.device_loop import tick_counts
+    _print_profile(args)
+    if args.profile:
+        print()
+        print("tick program: " + ", ".join(
+            f"{k} {v}" for k, v in tick_counts.items()))
 
 
 def cmd_check(args) -> int:

@@ -27,11 +27,20 @@ batched.upload) and ONE download (a packed float vector: raw-CE planes,
 special-row planes and final phases).  The gather indices are built on
 the host, which knows every label; masked rows carry a zero table value
 (CRS) or a zero mask (special rows), so they come back as zeros.
+
+On the card the device program is about 50 small complex128 operations,
+each a few microseconds of device work behind more of host dispatch.
+So _tick_program replays it as a CUDA graph, one per bucket (_bucket_key):
+the first tick of a bucket runs eagerly, the second captures the graph,
+every later one copies its arguments into the graph's static inputs,
+replays it and clones the static output.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import threading
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,15 +52,26 @@ from .batched import (_get_fd_block_core, _get_fd_core,
                       wire_planes)
 
 _RS_BUCKET = 64        # rs-row / special-row axis rounding
+_GRAPHS_MAX = 32       # buckets remembered (seen once, or captured)
+
+# How the tick's device program ran since the process started: captured
+# as a CUDA graph, replayed from one, run eagerly (the CPU, and a
+# bucket's first tick), and graphs dropped as least recently used.
+tick_counts = {"captures": 0, "replays": 0, "eager": 0, "evictions": 0}
+# bucket key -> its _TickGraph, or None after the bucket's first tick
+_graphs: "OrderedDict[tuple, Optional[_TickGraph]]" = OrderedDict()
+# the timings dict of the tick this thread is launching, for the span
+# "program.capture" (_tick_program's arguments are fixed)
+_launching = threading.local()
 
 
 def _bucket_up(n: int, b: int = _RS_BUCKET) -> int:
     return max(b, -(-n // b) * b)
 
 
-def _tick_program(planes, data, starts, fln, init_phase, fc_requested,
-                  fc_programmed, fs_programmed, rs_flat, rs_tab, spec_rows,
-                  spec_mask) -> torch.Tensor:
+def _tick_math(planes, data, starts, fln, init_phase, fc_requested,
+               fc_programmed, fs_programmed, rs_flat, rs_tab, spec_rows,
+               spec_mask) -> torch.Tensor:
     """The tick's device program: batched demod + CRS/special gather.
 
     planes [n_ext, 2] raw-block (re, im) planes with starts [B, S] (or
@@ -85,6 +105,83 @@ def _tick_program(planes, data, starts, fln, init_phase, fc_requested,
     return torch.cat([ce_re.reshape(-1), ce_im.reshape(-1),
                       spec[..., 0].reshape(-1), spec[..., 1].reshape(-1),
                       final])
+
+
+def _bucket_key(args) -> tuple:
+    """What a captured tick program depends on: each tensor argument's
+    shape, dtype and device (None for the absent one of planes and
+    data, and for starts with data), and the bits of the three
+    frequencies, which a capture bakes in as kernel arguments."""
+    return tuple((a.shape, a.dtype, a.device)
+                 if isinstance(a, torch.Tensor)
+                 else None if a is None else float(a).hex() for a in args)
+
+
+class _TickGraph:
+    """One bucket's tick program as a CUDA graph: static inputs, the
+    graph and its static output.  Built from one tick's arguments: an
+    eager warm-up on a side stream (cuFFT plans, _ramps' tensors), then
+    the capture."""
+
+    def __init__(self, args):
+        dev = args[3].device
+        self.inputs = [torch.empty(a.shape, dtype=a.dtype, device=dev)
+                       if isinstance(a, torch.Tensor) else a for a in args]
+        self._load(args)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            _tick_math(*self.inputs)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.out = _tick_math(*self.inputs)
+
+    def _load(self, args) -> None:
+        for s, a in zip(self.inputs, args):
+            if isinstance(a, torch.Tensor):
+                s.copy_(a)
+
+    def __call__(self, args) -> torch.Tensor:
+        self._load(args)
+        self.graph.replay()
+        return self.out.clone()
+
+
+def _tick_program(planes, data, starts, fln, init_phase, fc_requested,
+                  fc_programmed, fs_programmed, rs_flat, rs_tab, spec_rows,
+                  spec_mask) -> torch.Tensor:
+    """_tick_math's packed output, a fresh tensor each call.  On a CUDA
+    device the first tick of a bucket (_bucket_key) runs eagerly, the
+    second captures a CUDA graph (span "program.capture") and later
+    ones replay it; elsewhere every tick runs eagerly.  tick_counts
+    counts each way."""
+    args = (planes, data, starts, fln, init_phase, fc_requested,
+            fc_programmed, fs_programmed, rs_flat, rs_tab, spec_rows,
+            spec_mask)
+    if fln.device.type != "cuda":
+        tick_counts["eager"] += 1
+        return _tick_math(*args)
+    key = _bucket_key(args)
+    if key not in _graphs:
+        _graphs[key] = None
+        if len(_graphs) > _GRAPHS_MAX:
+            if _graphs.popitem(last=False)[1] is not None:
+                tick_counts["evictions"] += 1
+        tick_counts["eager"] += 1
+        return _tick_math(*args)
+    _graphs.move_to_end(key)
+    graph = _graphs[key]
+    if graph is not None:
+        tick_counts["replays"] += 1
+        return graph(args)
+    with stage("program.capture",
+               timings=getattr(_launching, "timings", None)):
+        graph = _graphs[key] = _TickGraph(args)
+        tick_counts["captures"] += 1
+        return graph(args)
 
 
 def _plans(cell_pdus):
@@ -207,7 +304,8 @@ def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
     processors advance them when applying the tick.  ``timings``: if a
     dict is given, the wall seconds of the host staging with its upload
     ("stage", split as stage_tick says), the device program,
-    synchronised ("program"; its launch alone "program.launch"), the
+    synchronised ("program"; its launch alone "program.launch", a
+    CUDA graph's capture within it "program.capture"), the
     download ("download") and the host control loops ("control", split
     as process_device says) are added to it (utils/debug.py::stage)."""
     with stage("stage", timings=timings):
@@ -215,7 +313,11 @@ def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
                                         block_seq, device, timings=timings)
     with stage("program", timings=timings) as sp:
         with stage("program.launch", timings=timings):
-            out = _tick_program(*args)
+            _launching.timings = timings
+            try:
+                out = _tick_program(*args)
+            finally:
+                _launching.timings = None
         if sp.on and out.device.type == "cuda":
             torch.cuda.current_stream(out.device).synchronize()
     with stage("download", timings=timings):

@@ -11,6 +11,7 @@ spans as a nested table.
 """
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -160,7 +161,8 @@ def test_track_profile_nests_the_tracker_spans(capsys):
     """``track --profile`` prints the span table when the tracker stops:
     each span under the one that enclosed it (the CPU's dense tick:
     control.phase_c in control, control.mib in control.phase_c, the
-    searcher's stages in search), shares of the top-level spans' sum."""
+    searcher's stages in search), shares of the top-level spans' sum;
+    then the tick program's counts."""
     argv = ["track", "-f", "739e6", "--sim", "--duration", "0.3",
             "--no-tui", "--no-kalibrate", "--no-warmup", "--device", "cpu",
             "-b", "--profile"]
@@ -169,7 +171,10 @@ def test_track_profile_nests_the_tracker_spans(capsys):
     finally:
         tdebug.enable_profiling(False)
     assert rc == 0
-    table = out.split("\n\nstage")[1].splitlines()[1:]
+    table, counts = out.split("\n\nstage")[1].split("\n\n")
+    assert re.fullmatch(r"tick program: captures \d+, replays \d+, "
+                        r"eager \d+, evictions \d+\n", counts)
+    table = table.splitlines()[1:]
     rows = {ln.split()[0]: ln for ln in table}
     depth = {k: (len(ln) - len(ln.lstrip())) // 2 for k, ln in rows.items()}
     assert {"producer": 0, "pop": 0, "fd": 0, "control": 0, "search": 0,
