@@ -9,7 +9,8 @@ Phases, each fatal on failure:
      sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
      ``hankel_mma.cuh``), all started together with the g++ build of the
      tracker's native runtime (``io/native.py::build``: ``native/*.cpp``
-     into the port's ``build/``); the ptxas register and
+     and ``csrc/cell_rows_tick.cpp`` into the port's ``build/``); the
+     ptxas register and
      spill lines of the seven tensor-core kernel instances, keyed by trait
      and sink (the five ``map_tc_kernel`` instances: the maps bf16, int8,
      bf16_f32out, int8_scaled and the sum probe; the two of

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+Each ``.cu`` source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) in ``build/`` beside this file, at first use, and loaded
 with ctypes.  Both sources include ``csrc/hankel_mma.cuh``, the

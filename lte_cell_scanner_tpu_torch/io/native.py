@@ -1,4 +1,5 @@
-"""ctypes binding of the repository's C++ runtime (``native/*.cpp``).
+"""ctypes binding of the repository's C++ runtime (``native/*.cpp``) and
+of the port's own addition to it (``csrc/cell_rows_tick.cpp``).
 
 The runtime covers the reference's native sample path and the tracker's
 per-cell math: LUT-based 8-bit IQ conversion, a lock-free SPSC byte ring
@@ -6,7 +7,8 @@ for the radio->host boundary (``SampleRing``, filled by the live
 dongle source's reader thread, ``io/rtlsdr.py``), the producer's per-cell symbol framing
 (``ingest.cpp``), and the tracker's RS-window statistics, feedback
 chain, CE interpolation, sync SNR, demod and tail-biting Viterbi
-(``tracker_math.cpp``).
+(``tracker_math.cpp``), and the device loop's cell tick over that
+math (``cell_rows_tick.cpp``, which calls the runtime's ``port_tick``).
 
 The port builds its own copy: ``g++`` compiles the sources with the
 flags of ``native/Makefile`` into ``build/libingest.so`` beside the
@@ -31,10 +33,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_ROOT = pathlib.Path(__file__).resolve().parents[2]
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_ROOT = _PKG.parent
 SOURCES = (_ROOT / "native" / "ingest.cpp",
-           _ROOT / "native" / "tracker_math.cpp")
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build"
+           _ROOT / "native" / "tracker_math.cpp",
+           _PKG / "csrc" / "cell_rows_tick.cpp")
+BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libingest.so"
 # native/Makefile's CXXFLAGS
 CXXFLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
@@ -130,15 +134,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
-    lib.port_tick.restype = ctypes.c_int64
-    lib.port_tick.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
-        ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.cell_tick.restype = ctypes.c_int64
     lib.cell_tick.argtypes = [
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -151,6 +146,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
+    lib.cell_rows_tick.restype = ctypes.c_int64
+    lib.cell_rows_tick.argtypes = (
+        [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        + [ctypes.c_void_p] * 6
+        + [ctypes.c_int64] * 3 + [ctypes.c_double] * 4 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 16 + [ctypes.c_int64] + [ctypes.c_void_p] * 4)
     lib.get_fd_batch.restype = ctypes.c_double
     lib.get_fd_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,

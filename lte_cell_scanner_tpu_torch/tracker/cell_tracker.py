@@ -11,9 +11,11 @@ Re-design: one TrackedCellProcessor object per cell, driven by the event
 loop with struct-of-arrays PDU CHUNKS (tracker/producer.py PduChunk); the
 per-cell thread + FIFO/condvar machinery becomes array fifos drained once
 per tick.  The per-RS-window numerics and the sequential FOE/TOE feedback
-chain run in the native C++ runtime (native/tracker_math.cpp
-rs_window_update_batch2 -- the reference's tracker math is C++ too), with
-a numpy float64 fallback that mirrors the reference's double math
+chain run in the native C++ runtime, one call per cell and tick for all
+its ports (native/tracker_math.cpp cell_tick, and in device-loop mode
+csrc/cell_rows_tick.cpp over the runtime's port_tick -- the reference's
+tracker math is C++ too), with a
+numpy float64 fallback that mirrors the reference's double math
 loop-for-loop (pinned by parity tests).  The heavy demod front end
 (mixer + DFT) is batched across all cells (tracker/batched.py), and in
 device-loop mode the CRS extraction with it (tracker/device_loop.py,
@@ -37,6 +39,12 @@ from ..utils.debug import stage
 from .batched import _CN
 from .producer import PduChunk
 from .state import GlobalState, TrackedCell
+
+
+# How process_device ran the RS-window chain since the process started:
+# cells processed by the one native call (cell_rows_tick), and port
+# passes taken by the numpy fallback.
+rs_counts = {"cell_calls": 0, "fallback_ports": 0}
 
 
 def _wrap(x, lo, hi):
@@ -129,16 +137,12 @@ class TrackedCellProcessor:
         n_ports = cell.n_ports
         # (slots, syms, fd-symbols) awaiting interpolated CEs
         self.data_fifo = _SoaFifo()
-        # per-port pending raw-CE rows: (ce[m,12], shift, slot, sym, fo, ft)
-        self.rs_pending: List[Optional[Tuple[np.ndarray, ...]]] = \
+        # numpy fallback's per-port pending raw-CE rows (rs_pending)
+        self._rs_pending: List[Optional[Tuple[np.ndarray, ...]]] = \
             [None] * n_ports
         # per-port carry row between interpolation pairs:
         # (ce72[72], tp, sp, sp_raw, np, slot, sym)
         self.filt_carry: List[Optional[tuple]] = [None] * n_ports
-        # fused-native carry state: [ce72, {tp,sp,spr,np}, {slot,sym}, valid]
-        self._tick_carry = [[np.zeros(72, np.complex128), np.zeros(4),
-                             np.zeros(2, np.int64), False]
-                            for _ in range(n_ports)]
         self.ce_interp_fifo: List[_SoaFifo] = [_SoaFifo()
                                                for _ in range(n_ports)]
         self.ce_interp_init = [False] * n_ports
@@ -167,14 +171,15 @@ class TrackedCellProcessor:
         from ..io.native import get_lib
         self._native = get_lib()
         if self._native is not None:
-            # fused-cell-tick state (native cell_tick): pending CRS rows,
-            # pair carry, and the ac_td history stacked per port.  The
-            # ce_history entries alias the stacked buffers so the
-            # two-step paths (parity tests) share the same state.
+            # fused-cell-tick state (native cell_tick, cell_rows_tick):
+            # pending CRS rows, pair carry, and the ac_td history stacked
+            # per port.  The ce_history entries alias the stacked buffers
+            # so the two-step paths (parity tests) share the same state.
             self._shift_i64 = np.ascontiguousarray(
                 self.rs_dl.shift_table, np.int64)
             self._rs_conj = np.ascontiguousarray(self._rs_conj,
                                                  np.complex128)
+            self._shift_at = self._shift_i64.ctypes.data
             self._alloc_pending(512)
             self._carry_ce72 = np.zeros((n_ports, 72), np.complex128)
             self._carry_scal = np.zeros((n_ports, 4))
@@ -184,6 +189,8 @@ class TrackedCellProcessor:
             self._hist_pos = np.zeros(n_ports, np.int64)
             self.ce_history = [(self._hist[p], self._hist_pos[p:p + 1])
                                for p in range(n_ports)]
+            self._regs = np.zeros(2)
+            self._out_meta = np.zeros(3 * n_ports, np.int64)
 
     def _alloc_pending(self, cap: int) -> None:
         n_ports = self.cell.n_ports
@@ -195,6 +202,7 @@ class TrackedCellProcessor:
         self._pend_fo = np.zeros((n_ports, cap))
         self._pend_ft = np.zeros((n_ports, cap))
         self._pend_cnt = np.zeros(n_ports, np.int64)
+        self._tick_ptrs = None
 
     def _grow_pending(self, cap: int) -> None:
         old = (self._pend_ce, self._pend_shift, self._pend_slot,
@@ -208,6 +216,18 @@ class TrackedCellProcessor:
             for o, n in zip(old, new):
                 n[p, :k] = o[p, :k]
         self._pend_cnt = cnt
+
+    @property
+    def rs_pending(self) -> List[Optional[Tuple[np.ndarray, ...]]]:
+        """Per-port pending raw-CE rows (ce[m,12], shift, slot, sym, fo,
+        ft), None before the port's first row: copies of the native
+        pending buffers, or the numpy fallback's own list."""
+        if self._native is None:
+            return self._rs_pending
+        bufs = (self._pend_ce, self._pend_shift, self._pend_slot,
+                self._pend_sym, self._pend_fo, self._pend_ft)
+        return [tuple(a[p, :k].copy() for a in bufs) if k else None
+                for p, k in enumerate(self._pend_cnt.tolist())]
 
     # ------------------------------------------------------------------
     def _filter_ce(self, prev: _RsPdu, curr: _RsPdu, nxt: _RsPdu):
@@ -505,121 +525,104 @@ class TrackedCellProcessor:
         self.ce_interp_fifo[port].append(ce_rows, tp_rows, sp_rows,
                                          spr_rows, np_rows)
 
-    def _port_tick(self, port: int, ce, shift, slot, sym, fo, ft) -> None:
-        """One fused native call for the port's whole tick: all complete
-        RS 3-windows (stats + sequential FOE/frame-timing feedback +
-        12->72 interpolation) and the pair time-interpolation emission,
-        carrying the last row across the tick boundary in C state
-        (native port_tick; semantics pinned against the two-step
-        _rs_windows + _interp_pairs fallback)."""
-        c = self.cell
-        st = self.state
-        m = ce.shape[0]
-        n_symb = c.n_symb_dl()
-        ce = np.ascontiguousarray(ce, np.complex128)
-        shift = np.ascontiguousarray(shift, np.int64)
-        slot = np.ascontiguousarray(slot, np.int64)
-        sym = np.ascontiguousarray(sym, np.int64)
-        fo = np.ascontiguousarray(fo, np.float64)
-        ft = np.ascontiguousarray(ft, np.float64)
-        carry = self._tick_carry[port]
-        c72, cscal, clabel = carry[0], carry[1], carry[2]
-        slot_w = slot[1: m - 1]
-        sym_w = sym[1: m - 1]
-        if carry[3]:
-            seq_slot = np.concatenate([clabel[:1], slot_w])
-            seq_sym = np.concatenate([clabel[1:], sym_w])
-        else:
-            seq_slot, seq_sym = slot_w, sym_w
-        dists = ((seq_slot[1:] - seq_slot[:-1]) % 20) * n_symb \
-            + (seq_sym[1:] - seq_sym[:-1])
-        total = int(np.maximum(dists, 0).sum()) if dists.size else 0
-        buf, pos = self.ce_history[port]
-        regs = np.array([st.frequency_offset, c.frame_timing])
-        cap = max(total, 1)
-        ce_rows = np.empty((cap, 72), np.complex128)
-        tp_rows = np.empty(cap)
-        sp_rows = np.empty(cap)
-        spr_rows = np.empty(cap)
-        np_rows = np.empty(cap)
-        n_emit = self._native.port_tick(
-            m, ce.ctypes.data, shift.ctypes.data, slot.ctypes.data,
-            sym.ctypes.data, fo.ctypes.data, ft.ctypes.data, int(carry[3]),
-            c72.ctypes.data, cscal.ctypes.data, clabel.ctypes.data,
-            n_symb, int(port > 2),
-            int(c.cp_type is CpType.EXTENDED), FS_LTE,
-            st.fc_requested, st.fc_programmed, st.fs_programmed,
-            c.ac_fd.ctypes.data, c.ac_td.ctypes.data,
-            buf.ctypes.data, pos.ctypes.data, regs.ctypes.data,
-            ce_rows.ctypes.data, tp_rows.ctypes.data, sp_rows.ctypes.data,
-            spr_rows.ctypes.data, np_rows.ctypes.data)
-        carry[3] = True
-        st.frequency_offset = float(regs[0])
-        c.frame_timing = float(regs[1])
-        if n_emit == 0:
-            return
-        if n_emit != cap:
-            ce_rows, tp_rows, sp_rows, spr_rows, np_rows = (
-                a[:n_emit] for a in
-                (ce_rows, tp_rows, sp_rows, spr_rows, np_rows))
-        self._emit_rows(port, ce_rows, tp_rows, sp_rows, spr_rows, np_rows,
-                        int(seq_slot[0]), int(seq_sym[0]))
-
     def _cell_tick(self, S, slots_a, syms_a, fo, ft) -> None:
         """One fused native call for the whole cell tick: per-port CRS
         extraction from the tick's fd symbols, pending-row management,
         window statistics + sequential feedback, and the pair
         time-interpolation emission (native cell_tick; semantics pinned
         against the per-port two-step fallback)."""
+        S = np.ascontiguousarray(S, np.complex128)
+        self._run_cell_tick(
+            self._native.cell_tick, S.shape[0],
+            (S.ctypes.data, *self._tick_labels(slots_a, syms_a, fo, ft),
+             self._shift_at, self._rs_conj.ctypes.data))
+
+    def _cell_rows_tick(self, ce_rows, n_rows, slots_a, syms_a, fo,
+                        ft) -> None:
+        """The device loop's cell tick in one native call: the raw-CE
+        rows the device extracted (ce_rows [>= n_ports, NR, 12], port
+        p's n_rows[p] rows first, in symbol order) appended to the
+        pending rows, then the same windows, feedback and emission as
+        _cell_tick (native cell_rows_tick, csrc/cell_rows_tick.cpp,
+        which raises here when its own selection of a port's rows does
+        not count n_rows[p])."""
+        ce_rows = np.ascontiguousarray(ce_rows, np.complex128)
+        self._run_cell_tick(
+            self._native.cell_rows_tick, len(slots_a),
+            (ce_rows.ctypes.data, ce_rows.shape[1], n_rows.ctypes.data,
+             *self._tick_labels(slots_a, syms_a, fo, ft), self._shift_at),
+            scal_by_field=True)
+
+    @staticmethod
+    def _tick_labels(slots_a, syms_a, fo, ft) -> tuple:
+        return (np.ascontiguousarray(slots_a, np.int64).ctypes.data,
+                np.ascontiguousarray(syms_a, np.int64).ctypes.data,
+                np.ascontiguousarray(fo, np.float64).ctypes.data,
+                np.ascontiguousarray(ft, np.float64).ctypes.data)
+
+    def _run_cell_tick(self, entry, n_new: int, head: tuple,
+                       scal_by_field: bool = False) -> None:
+        """Call a native cell tick (cell_tick or cell_rows_tick, whose
+        own leading arguments are ``head``) on the persistent per-port
+        state, whose addresses are cached until _alloc_pending or a new
+        ac_fd/ac_td array replaces one, with a fresh output buffer (the
+        fifo keeps views of it); then emit each port's rows.  The
+        emitted scalars come packed per row ({tp, sp, spr, np}), or per
+        field with ``scal_by_field`` (cell_rows_tick)."""
         c = self.cell
         st = self.state
         n_ports = c.n_ports
-        n_new = S.shape[0]
         n_symb = c.n_symb_dl()
-        if int(self._pend_cnt.max()) + n_new > self._pend_cap:
+        # a cell tick leaves at most 2 rows pending on every port
+        if n_new + 2 > self._pend_cap:
             cap = self._pend_cap
-            while int(self._pend_cnt.max()) + n_new > cap:
+            while n_new + 2 > cap:
                 cap *= 2
             self._grow_pending(cap)
+        ptrs = self._tick_ptrs
+        if ptrs is None or ptrs[0] is not c.ac_fd or ptrs[1] is not c.ac_td:
+            meta_at = self._out_meta.ctypes.data
+            ptrs = self._tick_ptrs = (c.ac_fd, c.ac_td, tuple(
+                a.ctypes.data for a in (
+                    self._pend_ce, self._pend_shift, self._pend_slot,
+                    self._pend_sym, self._pend_fo, self._pend_ft,
+                    self._pend_cnt, self._carry_ce72, self._carry_scal,
+                    self._carry_label, self._carry_valid, c.ac_fd, c.ac_td,
+                    self._hist, self._hist_pos, self._regs)),
+                (meta_at, meta_at + 8 * n_ports))
+        # one fresh buffer: out_ce [P, cap_out, 72], then out_scal
+        # {tp, sp, spr, np} as [P, cap_out, 4] (or [P, 4, cap_out],
+        # viewed as the former)
         cap_out = n_new + 4 * n_symb + 8
-        out_ce = np.empty((n_ports, cap_out, 72), np.complex128)
-        out_scal = np.empty((n_ports, cap_out, 4))
-        out_cnt = np.empty(n_ports, np.int64)
-        out_label0 = np.empty((n_ports, 2), np.int64)
-        regs = np.array([st.frequency_offset, c.frame_timing])
-        S = np.ascontiguousarray(S, np.complex128)
-        slots_a = np.ascontiguousarray(slots_a, np.int64)
-        syms_a = np.ascontiguousarray(syms_a, np.int64)
-        fo = np.ascontiguousarray(fo, np.float64)
-        ft = np.ascontiguousarray(ft, np.float64)
-        r = self._native.cell_tick(
-            n_new, S.ctypes.data, slots_a.ctypes.data, syms_a.ctypes.data,
-            fo.ctypes.data, ft.ctypes.data, self._shift_i64.ctypes.data,
-            self._rs_conj.ctypes.data, n_ports, n_symb,
-            int(c.cp_type is CpType.EXTENDED), FS_LTE, st.fc_requested,
-            st.fc_programmed, st.fs_programmed, self._pend_cap,
-            self._pend_ce.ctypes.data, self._pend_shift.ctypes.data,
-            self._pend_slot.ctypes.data, self._pend_sym.ctypes.data,
-            self._pend_fo.ctypes.data, self._pend_ft.ctypes.data,
-            self._pend_cnt.ctypes.data, self._carry_ce72.ctypes.data,
-            self._carry_scal.ctypes.data, self._carry_label.ctypes.data,
-            self._carry_valid.ctypes.data, c.ac_fd.ctypes.data,
-            c.ac_td.ctypes.data, self._hist.ctypes.data,
-            self._hist_pos.ctypes.data, regs.ctypes.data, cap_out,
-            out_ce.ctypes.data, out_scal.ctypes.data, out_cnt.ctypes.data,
-            out_label0.ctypes.data)
+        n_ce = n_ports * cap_out * 144
+        out = np.empty(n_ce + n_ports * cap_out * 4)
+        out_ce = out[:n_ce].view(np.complex128).reshape(n_ports, cap_out, 72)
+        if scal_by_field:
+            out_scal = out[n_ce:].reshape(n_ports, 4, cap_out).transpose(
+                0, 2, 1)
+        else:
+            out_scal = out[n_ce:].reshape(n_ports, cap_out, 4)
+        at = out.ctypes.data
+        regs = self._regs
+        regs[0] = st.frequency_offset
+        regs[1] = c.frame_timing
+        r = entry(
+            n_new, *head, n_ports, n_symb, int(c.cp_type is CpType.EXTENDED),
+            FS_LTE, st.fc_requested, st.fc_programmed, st.fs_programmed,
+            self._pend_cap, *ptrs[2], cap_out, at, at + 8 * n_ce, *ptrs[3])
         if r < 0:
-            raise RuntimeError("native cell_tick capacity exceeded")
+            raise RuntimeError("native cell tick: capacity exceeded or "
+                               "a port's rows miscounted")
         st.frequency_offset = float(regs[0])
         c.frame_timing = float(regs[1])
+        meta = self._out_meta.tolist()      # out_cnt [P], out_label0 [P, 2]
         for p in range(n_ports):
-            w = int(out_cnt[p])
-            if w == 0:
-                continue
-            self._emit_rows(p, out_ce[p, :w], out_scal[p, :w, 0],
-                            out_scal[p, :w, 1], out_scal[p, :w, 2],
-                            out_scal[p, :w, 3], int(out_label0[p, 0]),
-                            int(out_label0[p, 1]))
+            w = meta[p]
+            if w:
+                self._emit_rows(p, out_ce[p, :w], out_scal[p, :w, 0],
+                                out_scal[p, :w, 1], out_scal[p, :w, 2],
+                                out_scal[p, :w, 3], meta[n_ports + 2 * p],
+                                meta[n_ports + 2 * p + 1])
 
     # ------------------------------------------------------------------
     def _do_pss_sss_sigpower_ce(self, syms, slot_num, sym_num) -> None:
@@ -849,11 +852,11 @@ class TrackedCellProcessor:
                         * self._rs_conj[slots_a[sel], syms_a[sel]]
                     new = (ce_raw, shv, slots_a[sel], syms_a[sel],
                            chunk.fo[sel], chunk.ft[sel])
-                    pend = self.rs_pending[port]
+                    pend = self._rs_pending[port]
                     if pend is None:
-                        self.rs_pending[port] = new
+                        self._rs_pending[port] = new
                     else:
-                        self.rs_pending[port] = tuple(
+                        self._rs_pending[port] = tuple(
                             np.concatenate([a, b])
                             for a, b in zip(pend, new))
 
@@ -863,7 +866,7 @@ class TrackedCellProcessor:
         # _cell_tick above.)
         if self._native is None:
             for port in range(n_ports):
-                pend = self.rs_pending[port]
+                pend = self._rs_pending[port]
                 if pend is None or pend[0].shape[0] < 3:
                     continue
                 m = pend[0].shape[0]
@@ -872,7 +875,7 @@ class TrackedCellProcessor:
                 sym_w = pend[3][1: m - 1]
                 self._interp_pairs(port, ce72, tp, sp, spr, npv,
                                    slot_w, sym_w)
-                self.rs_pending[port] = tuple(
+                self._rs_pending[port] = tuple(
                     np.ascontiguousarray(a[m - 2:]) for a in pend)
 
         # Phase C -- pair data symbols with interpolated CEs: dashboard
@@ -948,6 +951,33 @@ class TrackedCellProcessor:
                     if len(self.mib_fifo) == 16 and not self._mib_try_decode():
                         return
 
+    def _rs_fallback(self, chunk, slots_a, syms_a, sh_all, rs_sel,
+                     ce_rows) -> None:
+        """process_device's RS-window chain on the numpy fallback: port
+        by port, the downloaded rows onto the pending rows, then the
+        two-step _rs_windows + _interp_pairs."""
+        for port in range(self.cell.n_ports):
+            rs_counts["fallback_ports"] += 1
+            sel = rs_sel[port]
+            if len(sel) == 0:
+                pend = self._rs_pending[port]
+            else:
+                new = (np.ascontiguousarray(ce_rows[port, :len(sel)],
+                                            np.complex128),
+                       sh_all[sel, port].astype(np.int64),
+                       slots_a[sel], syms_a[sel],
+                       chunk.fo[sel], chunk.ft[sel])
+                pend = self._rs_pending[port]
+                pend = new if pend is None else tuple(
+                    np.concatenate([a, b]) for a, b in zip(pend, new))
+            if pend is not None and pend[0].shape[0] >= 3:
+                m = pend[0].shape[0]
+                ce72, tp, sp, spr, npv = self._rs_windows(port, *pend)
+                self._interp_pairs(port, ce72, tp, sp, spr, npv,
+                                   pend[2][1: m - 1], pend[3][1: m - 1])
+                pend = tuple(np.ascontiguousarray(a[m - 2:]) for a in pend)
+            self._rs_pending[port] = pend
+
     # ------------------------------------------------------------------
     def process_device(self, chunk: Optional[PduChunk], slots_a, syms_a,
                        sh_all, rs_sel, ce_rows, spec_sel, spec_rows,
@@ -955,10 +985,12 @@ class TrackedCellProcessor:
                        timings: Optional[dict] = None) -> None:
         """Device-loop tick (tracker/device_loop.py): the demod + CRS
         extraction already ran on device -- consume the downloaded
-        [n_rs, 12] raw-CE rows per port and the sparse special-symbol
-        rows, then run the UNCHANGED host f64 control loops (window
-        statistics, sequential FOE/frame-timing feedback, CE
-        interpolation) and the sparse Phase C.
+        raw-CE rows (ce_rows [>= n_ports, NR, 12]: port p's first
+        len(rs_sel[p]) rows) and the sparse special-symbol rows, then
+        run the UNCHANGED host f64 control loops (window statistics,
+        sequential FOE/frame-timing feedback, CE interpolation: one
+        native cell_rows_tick for all ports, or the per-port numpy
+        fallback; rs_counts counts each) and the sparse Phase C.
 
         slots_a/syms_a/sh_all/rs_sel/spec_sel are the planner's
         structural arrays for this tick (label arithmetic identical to
@@ -980,33 +1012,15 @@ class TrackedCellProcessor:
                 self._spec_map[self._sym_base + int(i)] = spec_rows[j]
             self._sym_base += n_new
             with stage("control.rs", timings=timings, host=True):
-                for port in range(c.n_ports):
-                    sel = rs_sel[port]
-                    if len(sel) == 0:
-                        pend = self.rs_pending[port]
-                    else:
-                        new = (np.ascontiguousarray(ce_rows[port],
-                                                    np.complex128),
-                               sh_all[sel, port].astype(np.int64),
-                               slots_a[sel], syms_a[sel],
-                               chunk.fo[sel], chunk.ft[sel])
-                        pend = self.rs_pending[port]
-                        pend = new if pend is None else tuple(
-                            np.concatenate([a, b])
-                            for a, b in zip(pend, new))
-                    if pend is not None and pend[0].shape[0] >= 3:
-                        m = pend[0].shape[0]
-                        if self._native is not None:
-                            self._port_tick(port, *pend)
-                        else:
-                            ce72, tp, sp, spr, npv = self._rs_windows(
-                                port, *pend)
-                            self._interp_pairs(port, ce72, tp, sp, spr, npv,
-                                               pend[2][1: m - 1],
-                                               pend[3][1: m - 1])
-                        pend = tuple(np.ascontiguousarray(a[m - 2:])
-                                     for a in pend)
-                    self.rs_pending[port] = pend
+                if self._native is not None:
+                    n_rows = np.fromiter(map(len, rs_sel), np.int64,
+                                         c.n_ports)
+                    self._cell_rows_tick(ce_rows, n_rows, slots_a, syms_a,
+                                         chunk.fo, chunk.ft)
+                    rs_counts["cell_calls"] += 1
+                else:
+                    self._rs_fallback(chunk, slots_a, syms_a, sh_all,
+                                      rs_sel, ce_rows)
 
         # sparse Phase C: labels recomputed from the absolute emitted-
         # row counter (emitted row j corresponds to absolute symbol j,

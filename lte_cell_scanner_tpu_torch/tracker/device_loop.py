@@ -326,9 +326,7 @@ def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
         ce_raw, spec_rows, final = unpack(packed, shape)
         for b, ((proc, chunk), plan) in enumerate(zip(cell_pdus, plans)):
             slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
-            rows = [ce_raw[b, p, : len(sel)]
-                    for p, sel in enumerate(rs_sel)]
             proc.process_device(chunk, slots_a, syms_a, sh_all, rs_sel,
-                                rows, spec_sel,
+                                ce_raw[b], spec_sel,
                                 spec_rows[b, : len(spec_sel)],
                                 float(final[b]), timings=timings)

@@ -6,11 +6,13 @@ The same numpy inputs, made from a seed, go through both packages:
 - the demod program (``_get_fd_core`` and its block-gather variant, B =
   3 cells x S = 64 symbols) and one device-loop tick's packed output,
   both in float64, within 1e-12;
-- the port's native binding (built from ``native/*.cpp`` into the
-  port's own ``build/``) against the TPU package's numpy fallbacks:
+- the port's native binding (built from ``native/*.cpp`` and
+  ``csrc/cell_rows_tick.cpp`` into the port's own ``build/``) against the TPU package's numpy fallbacks:
   interp72, pair interpolation, the RS-window update with its feedback
-  chain, the fused per-port and per-cell ticks, the symbol framing, the
-  u8 conversion and the MIB re-decode's Viterbi (tolerances of
+  chain, the fused cell ticks of the dense path and the device loop
+  (the latter also bit for bit against the per-port chain it replaced,
+  and its counter), the symbol framing, the u8 conversion and the MIB
+  re-decode's Viterbi (tolerances of
   tests/test_tracker.py:347-470 and tests/test_coding.py);
 - the capture streams, bit for bit;
 - ``skip_ids`` through ``cell_search`` (batched and peak by peak) and a
@@ -299,9 +301,9 @@ def test_native_interp_pairs_match_numpy_fallback(lib, cp, port):
 @pytest.mark.parametrize("cp,n_ports", [("normal", 2), ("extended", 1),
                                         ("normal", 4)])
 def test_native_cell_tick_matches_numpy_process(lib, cp, n_ports):
-    """The fused native cell tick (dense path) and port tick (device
-    loop) against the TPU package's all-numpy process(), fed identical
-    fd symbols across ragged ticks (tests/test_tracker.py:733-815)."""
+    """The fused native cell tick (dense path) against the TPU package's
+    all-numpy process(), fed identical fd symbols across ragged ticks
+    (tests/test_tracker.py:733-815)."""
     rng = np.random.default_rng(23)
     n_symb = 7 if cp == "normal" else 6
     st_a, cell_a, st_b, cell_b = _pair(cp, n_ports, fo=50.0,
@@ -336,6 +338,187 @@ def test_native_cell_tick_matches_numpy_process(lib, cp, n_ports):
         assert np.all(np.isfinite(a)), f
         np.testing.assert_allclose(a, b, atol=1e-12, err_msg=f)
     assert cell_b.mib_decode_failures == cell_a.mib_decode_failures
+
+
+# Ragged device-loop ticks, in symbols: one RS row for ports 0/1 and
+# fewer than 3 pending rows (1, at sym 0), a tick that gives ports 0/1
+# none (1, at sym 1), one that gives no port of the normal CP a row (2,
+# at syms 2-3), and one of 530 symbols, past the pending rows' first
+# capacity of 512 (_grow_pending).
+_ROWS_TICKS = (1, 1, 2, 54, 97, 40, 530, 31, 5)
+
+
+def _rows_tick_inputs(rng, proc, n):
+    """One device-loop tick of n symbols for proc: the planner's plan,
+    its PduChunk and what the device would download for the cell: raw-CE
+    rows [4, NR, 12] with each port's rows first, junk in the rest (rows
+    past a port's count and the ports the cell lacks are never read),
+    and the special rows."""
+    k = proc.slot_num * proc.cell.n_symb_dl() + proc.sym_num + np.arange(n)
+    chunk = tprod.PduChunk(data=np.zeros((n, 128), np.complex128),
+                           late=np.zeros(n), fo=50.0 + 0.05 * k,
+                           ft=100.0 + 0.01 * k, sym0=0)
+    plan = tdl._plans([(proc, chunk)])[0]
+    nr = max(len(sel) for sel in plan[3]) + 3
+    ce_rows = rng.normal(size=(4, nr, 12)) + 1j * rng.normal(size=(4, nr, 12))
+    spec = rng.normal(size=(len(plan[4]), 72)) \
+        + 1j * rng.normal(size=(len(plan[4]), 72))
+    return plan, chunk, ce_rows, spec
+
+
+def _per_port_chain(proc, pend, chunk, plan, ce_rows):
+    """The per-port RS-window chain that the device loop ran before the
+    one native cell call: each port's new rows gathered and concatenated
+    onto its pending rows (``pend``, the helper's own list), then the
+    native window statistics with their feedback chain
+    (rs_window_update_batch2) and pair interpolation (interp_pairs), and
+    the 2-row tail."""
+    slots_a, syms_a, sh_all, rs_sel, _ = plan
+    for port, sel in enumerate(rs_sel):
+        if len(sel):
+            new = (ce_rows[port, :len(sel)].copy(),
+                   sh_all[sel, port].astype(np.int64), slots_a[sel],
+                   syms_a[sel], chunk.fo[sel], chunk.ft[sel])
+            pend[port] = new if pend[port] is None else tuple(
+                np.concatenate([a, b]) for a, b in zip(pend[port], new))
+        m = 0 if pend[port] is None else pend[port][0].shape[0]
+        if m >= 3:
+            ce72, tp, sp, spr, npv = proc._rs_windows(port, *pend[port])
+            proc._interp_pairs(port, ce72, tp, sp, spr, npv,
+                               pend[port][2][1: m - 1],
+                               pend[port][3][1: m - 1])
+            pend[port] = tuple(a[m - 2:].copy() for a in pend[port])
+
+
+def _record_emits(proc):
+    """Keep a copy of every row block proc emits into its fifos."""
+    seen = []
+    emit = proc._emit_rows
+
+    def record(port, *rows_and_labels):
+        seen.append((port,) + tuple(np.array(a) for a in rows_and_labels))
+        emit(port, *rows_and_labels)
+    proc._emit_rows = record
+    return seen
+
+
+@pytest.mark.parametrize("reference", ["per_port_chain", "numpy_fallback"])
+@pytest.mark.parametrize("cp,n_ports", [("normal", 2), ("extended", 1),
+                                        ("normal", 4)])
+def test_device_loop_cell_call_matches_per_port_chain(lib, monkeypatch, cp,
+                                                      n_ports, reference):
+    """process_device's one native call per cell (cell_rows_tick) against
+    the per-port chain it replaced, bit for bit, and against the numpy
+    fallback within the native-vs-numpy tolerances, fed the same
+    downloaded rows and plans over ragged ticks: the emitted rows, the
+    frequency-offset register, frame timing, ac_fd, ac_td, the ac_td
+    history ring, the pending rows and the Phase C state."""
+    monkeypatch.setattr(tct, "rs_counts", dict.fromkeys(tct.rs_counts, 0))
+    rng = np.random.default_rng(29)
+    got = tct.TrackedCellProcessor(
+        *_pair(cp, n_ports, fo=50.0, frame_timing=100.0)[:1:-1])
+    ref = tct.TrackedCellProcessor(
+        *_pair(cp, n_ports, fo=50.0, frame_timing=100.0)[:1:-1])
+    assert got._native is lib and got._pend_cap == 512
+    pend = [None] * n_ports
+    if reference == "numpy_fallback":
+        ref._native = None
+    emits = [_record_emits(p) for p in (got, ref)]
+    for n in _ROWS_TICKS:
+        plan, chunk, ce_rows, spec = _rows_tick_inputs(rng, got, n)
+        if reference == "per_port_chain":
+            ref._cell_rows_tick = lambda *_a: _per_port_chain(
+                ref, pend, chunk, plan, ce_rows)
+        for proc in (got, ref):
+            proc.process_device(chunk, *plan[:3], plan[3], ce_rows, plan[4],
+                                spec, 0.5)
+        assert (got.slot_num, got.sym_num) == (ref.slot_num, ref.sym_num)
+    assert got._pend_cap > 512
+    assert tct.rs_counts["cell_calls"] == len(_ROWS_TICKS) * (
+        1 + (reference == "per_port_chain"))
+    assert len(emits[0]) == len(emits[1]) > 0
+    pends = pend if reference == "per_port_chain" else ref.rs_pending
+    c, r = got.cell, ref.cell
+    if reference == "per_port_chain":
+        for a, b in zip(*emits):
+            assert a[0] == b[0] and a[-2:] == b[-2:]
+            for x, y in zip(a[1:-2], b[1:-2]):
+                assert np.array_equal(x, y)
+        assert got.state.frequency_offset == ref.state.frequency_offset
+        assert c.frame_timing == r.frame_timing
+        for f in ("ac_fd", "ac_td", "ce", "crs_tp_av", "crs_sp_raw_av",
+                  "crs_np_av"):
+            assert np.array_equal(getattr(c, f), getattr(r, f)), f
+        assert np.array_equal(got._hist, ref._hist)
+        assert np.array_equal(got._hist_pos, ref._hist_pos)
+        for a, b in zip(got.rs_pending, pends):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    else:
+        for a, b in zip(*emits):
+            assert a[0] == b[0] and a[-2:] == b[-2:]
+            for x, y in zip(a[1:-2], b[1:-2]):
+                np.testing.assert_allclose(x, y, rtol=0, atol=1e-10)
+        assert abs(got.state.frequency_offset
+                   - ref.state.frequency_offset) < 1e-6
+        assert abs(c.frame_timing - r.frame_timing) < 1e-8
+        for f in ("ac_fd", "ac_td", "ce", "crs_tp_av", "crs_sp_raw_av",
+                  "crs_np_av"):
+            np.testing.assert_allclose(getattr(c, f), getattr(r, f),
+                                       rtol=0, atol=1e-10, err_msg=f)
+        for p in range(n_ports):
+            np.testing.assert_allclose(got.ce_history[p][0],
+                                       ref.ce_history[p][0], rtol=0,
+                                       atol=1e-12)
+            assert got.ce_history[p][1][0] == ref.ce_history[p][1][0]
+        for a, b in zip(got.rs_pending, pends):
+            for x, y in zip(a, b):
+                np.testing.assert_allclose(x, y, rtol=0, atol=1e-12)
+    assert all(len(a[0]) == 2 for a in got.rs_pending)
+    assert c.mib_decode_failures == r.mib_decode_failures
+
+
+@pytest.mark.parametrize("port,delta", [(0, 1), (0, -1), (1, 1)])
+def test_device_loop_cell_call_rejects_miscounted_rows(lib, port, delta):
+    """cell_rows_tick selects each port's rows itself; where its count
+    and the planner's (len(rs_sel[p])) differ, the call raises instead
+    of reading the wrong rows."""
+    rng = np.random.default_rng(31)
+    proc = tct.TrackedCellProcessor(
+        *_pair("normal", 2, fo=50.0, frame_timing=100.0)[:1:-1])
+    plan, chunk, ce_rows, _ = _rows_tick_inputs(rng, proc, 54)
+    n_rows = np.array([len(s) for s in plan[3]], np.int64)
+    n_rows[port] += delta
+    with pytest.raises(RuntimeError, match="miscounted"):
+        proc._cell_rows_tick(ce_rows, n_rows, *plan[:2], chunk.fo, chunk.ft)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["library", "numpy"])
+def test_rs_counts_count_one_native_call_per_cell_tick(lib, monkeypatch,
+                                                       native):
+    """Four device-loop ticks on the CPU of three 2-port cells: with the
+    library each cell's tick is one native call (cell_calls) and no
+    port goes the numpy way; without it every port of every tick does
+    (fallback_ports)."""
+    from tools_torch.bench_tracker_device import staged_cells
+
+    counts = dict.fromkeys(tct.rs_counts, 0)
+    monkeypatch.setattr(tct, "rs_counts", counts)
+    procs = state = None
+    ticks = 4
+    for seed in range(ticks):
+        pairs, st, block = staged_cells(3, 40, adc_grid=True, seed=seed)
+        if procs is None:
+            procs, state = [p for p, _ in pairs], st
+            for p in procs:
+                if not native:
+                    p._native = None
+        tdl.batched_tick_extract(
+            [(p, chunk) for p, (_, chunk) in zip(procs, pairs)], state,
+            raw_block=block, block_seq=1, device="cpu")
+    want = {"cell_calls": 3 * ticks, "fallback_ports": 0} if native \
+        else {"cell_calls": 0, "fallback_ports": 3 * 2 * ticks}
+    assert counts == want
+    assert all(p.ce_interp_init == [True, True] for p in procs)
 
 
 def test_native_framing_matches_python_fallback(lib):
