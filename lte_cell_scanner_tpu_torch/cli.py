@@ -428,17 +428,13 @@ def _print_profile(args) -> None:
 
 def _print_track_profile(args) -> None:
     """The span table, then how the tick's device program ran
-    (tracker/device_loop.py::tick_counts) and how the control loops ran
-    its RS-window chain (tracker/cell_tracker.py::rs_counts)."""
-    from .tracker.cell_tracker import rs_counts
+    (tracker/device_loop.py::tick_counts)."""
     from .tracker.device_loop import tick_counts
     _print_profile(args)
     if args.profile:
         print()
-        for name, counts in (("tick program", tick_counts),
-                             ("rs windows", rs_counts)):
-            print(f"{name}: " + ", ".join(
-                f"{k} {v}" for k, v in counts.items()))
+        print("tick program: " + ", ".join(
+            f"{k} {v}" for k, v in tick_counts.items()))
 
 
 def cmd_check(args) -> int:

@@ -9,15 +9,20 @@ dongle source's reader thread, ``io/rtlsdr.py``), the producer's per-cell symbol
 chain, CE interpolation, sync SNR, demod and tail-biting Viterbi
 (``tracker_math.cpp``), and the device loop's cell tick over that
 math (``cell_rows_tick.cpp``, which calls the runtime's ``port_tick``).
+The port binds only the entry points it calls.
 
 The port builds its own copy: ``g++`` compiles the sources with the
 flags of ``native/Makefile`` into ``build/libingest.so`` beside the
 package (never into ``native/``), writing a temporary file and renaming
 it into place so that concurrent builds never load a half-written
 library.  ``-ffp-contract=off`` (no FMA contraction) keeps the native
-numerics rounding exactly like the numpy fallbacks of the callers, which
-stay as the parity reference and as the path when no compiler is
-present.
+numerics rounding exactly like the JAX package's numpy fallbacks, which
+are the parity reference.
+
+The port's tracker, its producer and the MIB re-decode's Viterbi
+require the runtime (``load``, which raises without ``g++``); the io
+layer's callers take ``get_lib`` and keep numpy paths for a library
+that does not load.
 """
 
 from __future__ import annotations
@@ -108,32 +113,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      ctypes.c_uint64]
     lib.ring_drop.restype = ctypes.c_uint64
     lib.ring_drop.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
-    lib.interp72.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                             ctypes.c_void_p]
-    lib.rs_window_update.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
-    lib.rs_window_update_batch.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.rs_window_update_batch2.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double, ctypes.c_double,
-        ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
     lib.viterbi_tailbite.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                      ctypes.c_void_p]
-    lib.interp_pairs.restype = ctypes.c_int64
-    lib.interp_pairs.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
     lib.cell_tick.restype = ctypes.c_int64
     lib.cell_tick.argtypes = [
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -193,9 +174,9 @@ def load() -> ctypes.CDLL:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The runtime, or None when it cannot be built or loaded (the
-    callers then run their numpy fallbacks).  A failure is not retried
-    within the process."""
+    """The runtime, or None when it cannot be built or loaded (the io
+    layer's callers then take their numpy paths).  A failure is not
+    retried within the process."""
     if _lib is not None or _tried:
         return _lib
     try:

@@ -13,7 +13,7 @@ The encoder, rate matcher and CRC are host numpy (the simulator's
 transmitter and the decoder's tables); the de-ratematcher and the
 tail-biting Viterbi decoder run on tensors with a leading batch axis,
 and again on the host for one codeword (``*_host``: the tracker's MIB
-re-decode).
+re-decode, whose Viterbi is the native runtime's).
 The decoder runs all 64 start-state hypotheses at once (the IT++
 decode_tailbite contract: best metric among start==end constrained
 paths) as a Python loop over the trellis steps.
@@ -132,42 +132,17 @@ def conv_decode_tailbite(d_llr: torch.Tensor) -> torch.Tensor:
 
 def conv_decode_tailbite_host(d_llr: np.ndarray) -> np.ndarray:
     """Host tail-biting Viterbi with conv_decode_tailbite's contract for
-    one codeword, LLRs [3, n] -> bits [n] (int32): native C
-    (native/tracker_math.cpp viterbi_tailbite) when the library loaded,
-    numpy otherwise.  The tracker's MIB re-decode runs it every 40 ms
-    per cell, where per-step tensor dispatch would cost more than the
-    trellis."""
-    from ..io.native import get_lib
+    one codeword, LLRs [3, n] -> bits [n] (int32), in the native runtime
+    (native/tracker_math.cpp viterbi_tailbite; io/native.py::load
+    builds it, and raises without a compiler).  The tracker's MIB
+    re-decode runs it every 40 ms per cell, where per-step tensor
+    dispatch would cost more than the trellis."""
+    from ..io.native import load
 
     d_llr = np.ascontiguousarray(d_llr, dtype=np.float64)
     n = d_llr.shape[1]
-    lib = get_lib()
-    if lib is not None:
-        bits = np.empty(n, dtype=np.int32)
-        lib.viterbi_tailbite(d_llr.ctypes.data, n, bits.ctypes.data)
-        return bits
-
-    _next_state, out_bits = _trellis()
-    signs = (1 - 2 * out_bits.astype(np.int64)).astype(np.float64)
-    preds = _predecessors()
-    pm = np.full((64, 64), -1e30)
-    pm[np.arange(64), np.arange(64)] = 0.0
-    choices = np.zeros((n, 64, 64), dtype=np.int64)
-    for k in range(n):
-        gain = signs @ d_llr[:, k] * 0.5                # [64, 2]
-        cand = (pm[:, :, None] + gain[None, :, :]).reshape(64, 128)
-        c2 = cand[:, preds]                             # [start, new, 2]
-        choices[k] = np.argmax(c2, axis=-1)
-        pm = np.max(c2, axis=-1)
-    best_start = int(np.argmax(pm[np.arange(64), np.arange(64)]))
-    pred_state = preds // 2
-    pred_bit = preds % 2
-    bits = np.zeros(n, dtype=np.int32)
-    state = best_start
-    for k in range(n - 1, -1, -1):
-        b = choices[k, best_start, state]
-        bits[k] = pred_bit[state, b]
-        state = pred_state[state, b]
+    bits = np.empty(n, dtype=np.int32)
+    load().viterbi_tailbite(d_llr.ctypes.data, n, bits.ctypes.data)
     return bits
 
 

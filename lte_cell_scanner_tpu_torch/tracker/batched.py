@@ -23,9 +23,8 @@ padding rows gather zeros from a guard window and change no output.
 
 ``backend="host"`` runs the same math on the host instead, in float64:
 the native C runtime (native/tracker_math.cpp get_fd_batch, its own
-radix-2 FFT), or vectorized numpy where the library did not load.  No
-runner selects it; it is the parity reference of the device program and
-of the native get_fd_batch.
+radix-2 FFT).  No runner selects it; the tests hold it and the device
+program against the JAX package's numpy get_fd.
 """
 
 from __future__ import annotations
@@ -142,34 +141,6 @@ def _get_fd_native(cell_pdus: Sequence[Tuple[object, object]], state,
     return out
 
 
-def _get_fd_numpy(cell_pdus: Sequence[Tuple[object, object]], state
-                  ) -> List[np.ndarray]:
-    """Vectorized numpy batch with the exact _get_fd_core math."""
-    out: List[np.ndarray] = []
-    n = np.arange(128.0)
-    fc_req = float(state.fc_requested)
-    fc_prog = float(state.fc_programmed)
-    fs_prog = float(state.fs_programmed)
-    for proc, chunk in cell_pdus:
-        data, fo, late = chunk.data, chunk.fo, chunk.late
-        nse = _nse_of_chunk(chunk, proc.cell.n_symb_dl())
-        k_factor = (fc_req - fo) / fc_prog
-        mix = np.exp((-2j * np.pi) * fo[:, None] * n
-                     / (fs_prog * k_factor)[:, None])
-        dft_in = np.roll(data * mix, -2, axis=-1)
-        dft_out = np.fft.fft(dft_in, axis=-1) / np.sqrt(128.0)
-        syms = np.concatenate([dft_out[:, -36:], dft_out[:, 1:37]], axis=-1)
-        incr = 2 * np.pi * nse * (16.0 / FS_LTE) * (-fo)
-        phase = proc.bulk_phase_offset + np.cumsum(incr)
-        comp = np.exp(1j * (phase[:, None]
-                            - 2 * np.pi * late[:, None] / 128.0 * _CN))
-        final = proc.bulk_phase_offset + float(np.sum(incr))
-        proc.bulk_phase_offset = float((final + np.pi) % (2 * np.pi)
-                                       - np.pi)
-        out.append(syms * comp)
-    return out
-
-
 def _stage_block_inputs(cell_pdus: Sequence[Tuple[object, object]],
                         raw_block, block_seq: int):
     """Host staging shared by the batched device paths: per-cell symbol
@@ -278,7 +249,8 @@ def batched_get_fd(cell_pdus: Sequence[Tuple[object, object]], state,
     Updates each processor's bulk_phase_offset and returns, per cell, an
     array [n_pdus, 72] of compensated frequency-domain symbols.
     backend: 'device' (tensor operations on ``device``, None = the
-    card) or 'host' (the native C runtime, numpy when it is absent).
+    card) or 'host' (the native C runtime, built here if it is
+    missing; raises without a compiler).
 
     raw_block/block_seq (device backend): the producer block the chunks
     were framed from.  When given, the device receives the block ONCE
@@ -287,11 +259,8 @@ def batched_get_fd(cell_pdus: Sequence[Tuple[object, object]], state,
     starts) ride in a small appendix of host-extracted windows.
     """
     if backend == "host":
-        from ..io.native import get_lib
-        lib = get_lib()
-        if lib is not None:
-            return _get_fd_native(cell_pdus, state, lib)
-        return _get_fd_numpy(cell_pdus, state)
+        from ..io.native import load
+        return _get_fd_native(cell_pdus, state, load())
     if backend != "device":
         raise ValueError(f"unknown get_fd backend {backend!r}")
 

@@ -16,8 +16,8 @@ tick's device program runs the batched demod (tracker/batched.py), then
 
 Everything downstream is unchanged host float64: the RS-window
 statistics, the sequential FOE/frame-timing register chain, interp72 +
-pair interpolation, sync SNR and the 40 ms MIB re-decode run through the
-same native/numpy code as the dense path
+pair interpolation, sync SNR and the 40 ms MIB re-decode run in the
+same native runtime as the dense path
 (cell_tracker.TrackedCellProcessor.process_device).
 
 A tick crosses the host-device boundary twice: ONE upload (the raw block
@@ -325,8 +325,8 @@ def batched_tick_extract(cell_pdus: Sequence[Tuple[object, object]],
     with stage("control", timings=timings, host=True):
         ce_raw, spec_rows, final = unpack(packed, shape)
         for b, ((proc, chunk), plan) in enumerate(zip(cell_pdus, plans)):
-            slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
-            proc.process_device(chunk, slots_a, syms_a, sh_all, rs_sel,
+            slots_a, syms_a, _sh_all, rs_sel, spec_sel = plan
+            proc.process_device(chunk, slots_a, syms_a, rs_sel,
                                 ce_raw[b], spec_sel,
                                 spec_rows[b, : len(spec_sel)],
                                 float(final[b]), timings=timings)

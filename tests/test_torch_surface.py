@@ -102,6 +102,10 @@ DELIBERATE = {
         "packages",
     f"{JAX_PKG}/tracker/runner.py::TrackerRunner(device_fd)":
         "the per-symbol host get_fd; the port's tick always runs batched",
+    f"{JAX_PKG}/tracker/cell_tracker.py::"
+    "TrackedCellProcessor.process_device(sh_all)":
+        "only the per-port numpy fallback read it; the port's one native "
+        "call per cell (cell_rows_tick) derives each row's CRS shift in C",
     f"{JAX_PKG}/models/search.py::refine_peaks(capbuf)": _STAGING,
     f"{JAX_PKG}/models/search.py::refine_peaks(cap_dev)": _STAGING,
     f"{JAX_PKG}/models/xcorr.py::xcorr_pss(cap_dev)": _STAGING,

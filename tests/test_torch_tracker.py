@@ -6,14 +6,16 @@ The same numpy inputs, made from a seed, go through both packages:
 - the demod program (``_get_fd_core`` and its block-gather variant, B =
   3 cells x S = 64 symbols) and one device-loop tick's packed output,
   both in float64, within 1e-12;
-- the port's native binding (built from ``native/*.cpp`` and
-  ``csrc/cell_rows_tick.cpp`` into the port's own ``build/``) against the TPU package's numpy fallbacks:
-  interp72, pair interpolation, the RS-window update with its feedback
-  chain, the fused cell ticks of the dense path and the device loop
-  (the latter also bit for bit against the per-port chain it replaced,
-  and its counter), the symbol framing, the u8 conversion and the MIB
-  re-decode's Viterbi (tolerances of
-  tests/test_tracker.py:347-470 and tests/test_coding.py);
+- the port's native runtime (built from ``native/*.cpp`` and
+  ``csrc/cell_rows_tick.cpp`` into the port's own ``build/``), which the
+  port's tracker requires, against the TPU package's numpy fallbacks:
+  the fused cell ticks of the dense path and the device loop (the
+  latter also bit for bit against the TPU package's per-port chain on
+  its own native library), the symbol framing, the u8 conversion and
+  the MIB re-decode's Viterbi (tolerances of
+  tests/test_tracker.py:347-470 and tests/test_coding.py); and that the
+  tracker and producer raise rather than fall back when the runtime
+  cannot be built;
 - the capture streams, bit for bit;
 - ``skip_ids`` through ``cell_search`` (batched and peak by peak) and a
   three-carrier ``scan_band``.
@@ -60,8 +62,7 @@ FC = 739e6
 @pytest.fixture(scope="module")
 def lib():
     """The port's native runtime, built here from native/*.cpp."""
-    lib = tnative.get_lib()
-    assert lib is not None, "the port's native runtime did not build"
+    lib = tnative.load()
     assert tnative.LIB_PATH.parent.name == "build"
     return lib
 
@@ -194,13 +195,13 @@ def test_tick_program_matches_tpu_extract_core(monkeypatch, block_path):
 
 
 def test_batched_get_fd_backends_agree():
-    """The port's batched get_fd on the CPU device, its native host
-    backend and that backend's numpy fallback against the TPU package's numpy path
+    """The port's batched get_fd on the CPU device and its native host
+    backend against the TPU package's numpy path
     (tests/test_tracker.py:193-240), the raw-block route included."""
     rng = np.random.default_rng(8)
     block = rng.normal(size=9000) + 1j * rng.normal(size=9000)
     outs = {}
-    for route in ("device-block", "device", "host", "numpy", "tpu"):
+    for route in ("device-block", "device", "host", "tpu"):
         cells, _st = _tick_cells(np.random.default_rng(9), block, 7)
         if route == "tpu":
             pairs = [(c[0], c[2]) for c in cells]
@@ -208,13 +209,10 @@ def test_batched_get_fd_backends_agree():
                                     backend="numpy")
         else:
             pairs = [(c[1], c[3]) for c in cells]
-            if route == "numpy":        # the host backend's fallback
-                res = tb._get_fd_numpy(pairs, pairs[0][0].state)
-            else:
-                kw = {"backend": route.split("-")[0], "device": "cpu"}
-                if route == "device-block":
-                    kw.update(raw_block=block, block_seq=7)
-                res = tb.batched_get_fd(pairs, pairs[0][0].state, **kw)
+            kw = {"backend": route.split("-")[0], "device": "cpu"}
+            if route == "device-block":
+                kw.update(raw_block=block, block_seq=7)
+            res = tb.batched_get_fd(pairs, pairs[0][0].state, **kw)
         outs[route] = (res, [p.bulk_phase_offset for p, _ in pairs])
     ref, ref_ph = outs.pop("tpu")
     for route, (res, ph) in outs.items():
@@ -225,88 +223,26 @@ def test_batched_get_fd_backends_agree():
 
 
 # ---------------------------------------------------------------------------
-# The native binding against the TPU package's numpy fallbacks
+# The native runtime against the TPU package's numpy fallbacks
 # ---------------------------------------------------------------------------
 
-def test_native_rs_windows_match_numpy_fallback(lib):
-    rng = np.random.default_rng(7)
-    st_a, cell_a, st_b, cell_b = _pair("normal", 1, fo=100.0,
-                                       frame_timing=1234.5)
-    ref = jct.TrackedCellProcessor(cell_a, st_a)
-    ref._native = None
-    got = tct.TrackedCellProcessor(cell_b, st_b)
-    assert got._native is lib
-    m = 200
-    ce = rng.normal(size=(m, 12)) + 1j * rng.normal(size=(m, 12))
-    shift = np.where(np.arange(m) % 2 == 0, 2, 5).astype(np.int64)
-    slot = (np.arange(m) // 2) % 20
-    sym = np.zeros(m, np.int64)
-    fo = 100.0 + 0.1 * np.arange(m)
-    ft = np.full(m, 1234.5)
-    for sl in (slice(0, 50), slice(48, 131), slice(129, 200)):
-        args = (ce[sl], shift[sl], slot[sl], sym[sl], fo[sl], ft[sl])
-        for x, y in zip(got._rs_windows(0, *args), ref._rs_windows(0, *args)):
-            np.testing.assert_allclose(x, y, rtol=0, atol=1e-12)
-    assert abs(st_b.frequency_offset - st_a.frequency_offset) < 1e-6
-    assert abs(cell_b.frame_timing - cell_a.frame_timing) < 1e-8
-    np.testing.assert_allclose(cell_b.ac_fd, cell_a.ac_fd, atol=1e-10)
-    np.testing.assert_allclose(cell_b.ac_td, cell_a.ac_td, atol=1e-10)
+# (cyclic prefix, ports, cell ID): cells 276, 277 and 278 put port 0's
+# CRS at shifts {0, 3}, {1, 4} and {2, 5}
+_CELLS = [pytest.param("normal", 2, 277, id="normal-2"),
+          pytest.param("extended", 1, 277, id="extended-1"),
+          pytest.param("normal", 4, 277, id="normal-4"),
+          pytest.param("normal", 2, 276, id="normal-2-276"),
+          pytest.param("normal", 2, 278, id="normal-2-278")]
 
 
-def test_native_interp72_matches_numpy_fallback(lib):
-    st, cell, tst, tcell = _pair("normal", 1)
-    ref = jct.TrackedCellProcessor(cell, st)
-    ref._native = None
-    got = tct.TrackedCellProcessor(tcell, tst)
-    rng = np.random.default_rng(8)
-    for shift in range(6):
-        kw = dict(shift=shift, slot_num=0, sym_num=0, tp=1.0, sp=1.0,
-                  sp_raw=1.0, np=0.1,
-                  ce_filt=rng.normal(size=12) + 1j * rng.normal(size=12))
-        np.testing.assert_allclose(got._interp72(tct._FiltPdu(**kw)),
-                                   ref._interp72(jct._FiltPdu(**kw)),
-                                   rtol=0, atol=1e-14)
-
-
-@pytest.mark.parametrize("cp,port", [("normal", 0), ("normal", 3),
-                                     ("extended", 0)])
-def test_native_interp_pairs_match_numpy_fallback(lib, cp, port):
-    rng = np.random.default_rng(13)
-    st, cell, tst, tcell = _pair(cp, 4)
-    ref = jct.TrackedCellProcessor(cell, st)
-    ref._native = None
-    got = tct.TrackedCellProcessor(tcell, tst)
-    n_symb = 7 if cp == "normal" else 6
-    m = 40
-    if port > 2:
-        slot = np.arange(m, dtype=np.int64) % 20
-        sym = np.ones(m, np.int64)
-    else:
-        slot = (np.arange(m, dtype=np.int64) // 2) % 20
-        sym = np.where(np.arange(m) % 2 == 0, 0,
-                       4 if n_symb == 7 else 3).astype(np.int64)
-    for sl in (slice(0, 7), slice(7, 8), slice(8, 29), slice(29, m)):
-        k = sl.stop - sl.start
-        ce72 = rng.normal(size=(k, 72)) + 1j * rng.normal(size=(k, 72))
-        tp, sp, spr, npv = rng.normal(size=(4, k))
-        args = (ce72, tp, sp, spr, npv, slot[sl], sym[sl])
-        got._interp_pairs(port, *args)
-        ref._interp_pairs(port, *args)
-    fa, fb = got.ce_interp_fifo[port], ref.ce_interp_fifo[port]
-    assert fa.n == fb.n > 0
-    for x, y in zip(fa.pop_n(fa.n), fb.pop_n(fb.n)):
-        np.testing.assert_allclose(x, y, atol=1e-14, rtol=0)
-
-
-@pytest.mark.parametrize("cp,n_ports", [("normal", 2), ("extended", 1),
-                                        ("normal", 4)])
-def test_native_cell_tick_matches_numpy_process(lib, cp, n_ports):
+@pytest.mark.parametrize("cp,n_ports,n_id", _CELLS)
+def test_native_cell_tick_matches_numpy_process(lib, cp, n_ports, n_id):
     """The fused native cell tick (dense path) against the TPU package's
     all-numpy process(), fed identical fd symbols across ragged ticks
     (tests/test_tracker.py:733-815)."""
     rng = np.random.default_rng(23)
     n_symb = 7 if cp == "normal" else 6
-    st_a, cell_a, st_b, cell_b = _pair(cp, n_ports, fo=50.0,
+    st_a, cell_a, st_b, cell_b = _pair(cp, n_ports, n_id, fo=50.0,
                                        frame_timing=100.0)
     ref = jct.TrackedCellProcessor(cell_a, st_a)
     ref._native = None
@@ -366,30 +302,6 @@ def _rows_tick_inputs(rng, proc, n):
     return plan, chunk, ce_rows, spec
 
 
-def _per_port_chain(proc, pend, chunk, plan, ce_rows):
-    """The per-port RS-window chain that the device loop ran before the
-    one native cell call: each port's new rows gathered and concatenated
-    onto its pending rows (``pend``, the helper's own list), then the
-    native window statistics with their feedback chain
-    (rs_window_update_batch2) and pair interpolation (interp_pairs), and
-    the 2-row tail."""
-    slots_a, syms_a, sh_all, rs_sel, _ = plan
-    for port, sel in enumerate(rs_sel):
-        if len(sel):
-            new = (ce_rows[port, :len(sel)].copy(),
-                   sh_all[sel, port].astype(np.int64), slots_a[sel],
-                   syms_a[sel], chunk.fo[sel], chunk.ft[sel])
-            pend[port] = new if pend[port] is None else tuple(
-                np.concatenate([a, b]) for a, b in zip(pend[port], new))
-        m = 0 if pend[port] is None else pend[port][0].shape[0]
-        if m >= 3:
-            ce72, tp, sp, spr, npv = proc._rs_windows(port, *pend[port])
-            proc._interp_pairs(port, ce72, tp, sp, spr, npv,
-                               pend[port][2][1: m - 1],
-                               pend[port][3][1: m - 1])
-            pend[port] = tuple(a[m - 2:].copy() for a in pend[port])
-
-
 def _record_emits(proc):
     """Keep a copy of every row block proc emits into its fifos."""
     seen = []
@@ -403,41 +315,41 @@ def _record_emits(proc):
 
 
 @pytest.mark.parametrize("reference", ["per_port_chain", "numpy_fallback"])
-@pytest.mark.parametrize("cp,n_ports", [("normal", 2), ("extended", 1),
-                                        ("normal", 4)])
-def test_device_loop_cell_call_matches_per_port_chain(lib, monkeypatch, cp,
-                                                      n_ports, reference):
+@pytest.mark.parametrize("cp,n_ports,n_id", _CELLS)
+def test_device_loop_cell_call_matches_per_port_chain(lib, cp, n_ports, n_id,
+                                                      reference):
     """process_device's one native call per cell (cell_rows_tick) against
-    the per-port chain it replaced, bit for bit, and against the numpy
-    fallback within the native-vs-numpy tolerances, fed the same
-    downloaded rows and plans over ragged ticks: the emitted rows, the
-    frequency-offset register, frame timing, ac_fd, ac_td, the ac_td
-    history ring, the pending rows and the Phase C state."""
-    monkeypatch.setattr(tct, "rs_counts", dict.fromkeys(tct.rs_counts, 0))
+    the TPU package's process_device, fed the same downloaded rows and
+    plans over ragged ticks: on its own native library (the runtime's
+    port_tick per port, the chain cell_rows_tick calls) bit for bit, and
+    on its numpy fallback within the native-vs-numpy tolerances.  Held:
+    the emitted rows, the frequency-offset register, frame timing,
+    ac_fd, ac_td, the ac_td history ring, the pending rows and the Phase
+    C state."""
     rng = np.random.default_rng(29)
-    got = tct.TrackedCellProcessor(
-        *_pair(cp, n_ports, fo=50.0, frame_timing=100.0)[:1:-1])
-    ref = tct.TrackedCellProcessor(
-        *_pair(cp, n_ports, fo=50.0, frame_timing=100.0)[:1:-1])
+    st_a, cell_a, st_b, cell_b = _pair(cp, n_ports, n_id, fo=50.0,
+                                       frame_timing=100.0)
+    got = tct.TrackedCellProcessor(cell_b, st_b)
+    ref = jct.TrackedCellProcessor(cell_a, st_a)
     assert got._native is lib and got._pend_cap == 512
-    pend = [None] * n_ports
-    if reference == "numpy_fallback":
+    if reference == "per_port_chain":
+        assert ref._native is not None, "the TPU package's runtime"
+    else:
         ref._native = None
     emits = [_record_emits(p) for p in (got, ref)]
     for n in _ROWS_TICKS:
         plan, chunk, ce_rows, spec = _rows_tick_inputs(rng, got, n)
-        if reference == "per_port_chain":
-            ref._cell_rows_tick = lambda *_a: _per_port_chain(
-                ref, pend, chunk, plan, ce_rows)
-        for proc in (got, ref):
-            proc.process_device(chunk, *plan[:3], plan[3], ce_rows, plan[4],
-                                spec, 0.5)
+        slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
+        got.process_device(chunk, slots_a, syms_a, rs_sel, ce_rows, spec_sel,
+                           spec, 0.5)
+        jchunk = jprod.PduChunk(data=chunk.data, late=chunk.late,
+                                fo=chunk.fo, ft=chunk.ft, sym0=chunk.sym0)
+        rows = [ce_rows[p, :len(rs_sel[p])] for p in range(n_ports)]
+        ref.process_device(jchunk, slots_a, syms_a, sh_all, rs_sel, rows,
+                           spec_sel, spec, 0.5)
         assert (got.slot_num, got.sym_num) == (ref.slot_num, ref.sym_num)
     assert got._pend_cap > 512
-    assert tct.rs_counts["cell_calls"] == len(_ROWS_TICKS) * (
-        1 + (reference == "per_port_chain"))
     assert len(emits[0]) == len(emits[1]) > 0
-    pends = pend if reference == "per_port_chain" else ref.rs_pending
     c, r = got.cell, ref.cell
     if reference == "per_port_chain":
         for a, b in zip(*emits):
@@ -451,7 +363,7 @@ def test_device_loop_cell_call_matches_per_port_chain(lib, monkeypatch, cp,
             assert np.array_equal(getattr(c, f), getattr(r, f)), f
         assert np.array_equal(got._hist, ref._hist)
         assert np.array_equal(got._hist_pos, ref._hist_pos)
-        for a, b in zip(got.rs_pending, pends):
+        for a, b in zip(got.rs_pending, ref.rs_pending):
             assert all(np.array_equal(x, y) for x, y in zip(a, b))
     else:
         for a, b in zip(*emits):
@@ -466,11 +378,10 @@ def test_device_loop_cell_call_matches_per_port_chain(lib, monkeypatch, cp,
             np.testing.assert_allclose(getattr(c, f), getattr(r, f),
                                        rtol=0, atol=1e-10, err_msg=f)
         for p in range(n_ports):
-            np.testing.assert_allclose(got.ce_history[p][0],
-                                       ref.ce_history[p][0], rtol=0,
-                                       atol=1e-12)
-            assert got.ce_history[p][1][0] == ref.ce_history[p][1][0]
-        for a, b in zip(got.rs_pending, pends):
+            np.testing.assert_allclose(got._hist[p], ref.ce_history[p][0],
+                                       rtol=0, atol=1e-12)
+            assert got._hist_pos[p] == ref.ce_history[p][1][0]
+        for a, b in zip(got.rs_pending, ref.rs_pending):
             for x, y in zip(a, b):
                 np.testing.assert_allclose(x, y, rtol=0, atol=1e-12)
     assert all(len(a[0]) == 2 for a in got.rs_pending)
@@ -490,35 +401,6 @@ def test_device_loop_cell_call_rejects_miscounted_rows(lib, port, delta):
     n_rows[port] += delta
     with pytest.raises(RuntimeError, match="miscounted"):
         proc._cell_rows_tick(ce_rows, n_rows, *plan[:2], chunk.fo, chunk.ft)
-
-
-@pytest.mark.parametrize("native", [True, False], ids=["library", "numpy"])
-def test_rs_counts_count_one_native_call_per_cell_tick(lib, monkeypatch,
-                                                       native):
-    """Four device-loop ticks on the CPU of three 2-port cells: with the
-    library each cell's tick is one native call (cell_calls) and no
-    port goes the numpy way; without it every port of every tick does
-    (fallback_ports)."""
-    from tools_torch.bench_tracker_device import staged_cells
-
-    counts = dict.fromkeys(tct.rs_counts, 0)
-    monkeypatch.setattr(tct, "rs_counts", counts)
-    procs = state = None
-    ticks = 4
-    for seed in range(ticks):
-        pairs, st, block = staged_cells(3, 40, adc_grid=True, seed=seed)
-        if procs is None:
-            procs, state = [p for p, _ in pairs], st
-            for p in procs:
-                if not native:
-                    p._native = None
-        tdl.batched_tick_extract(
-            [(p, chunk) for p, (_, chunk) in zip(procs, pairs)], state,
-            raw_block=block, block_seq=1, device="cpu")
-    want = {"cell_calls": 3 * ticks, "fallback_ports": 0} if native \
-        else {"cell_calls": 0, "fallback_ports": 3 * 2 * ticks}
-    assert counts == want
-    assert all(p.ce_interp_init == [True, True] for p in procs)
 
 
 def test_native_framing_matches_python_fallback(lib):
@@ -563,8 +445,7 @@ def test_native_u8_conversion_matches_numpy_fallback(lib, monkeypatch):
 
 def test_mib_host_decode_chain_matches_tpu_package(lib, monkeypatch):
     """The MIB re-decode's host helpers: log-MAP demod, de-ratematch and
-    the native Viterbi against the TPU package's numpy versions; the
-    port's numpy Viterbi too."""
+    the native Viterbi against the TPU package's numpy versions."""
     rng = np.random.default_rng(12)
     bits = rng.integers(0, 2, size=40)
     d = jcoding.conv_encode(bits)
@@ -583,9 +464,24 @@ def test_mib_host_decode_chain_matches_tpu_package(lib, monkeypatch):
     want = jcoding.conv_decode_tailbite_host(d_j)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, bits)
-    monkeypatch.setattr(tnative, "get_lib", lambda: None)
-    np.testing.assert_array_equal(tcoding.conv_decode_tailbite_host(d_t),
-                                  bits)
+
+
+@pytest.mark.parametrize("make", [
+    lambda tst, tcell: tct.TrackedCellProcessor(tcell, tst),
+    lambda tst, tcell: tprod.Producer(tst)],
+    ids=["TrackedCellProcessor", "Producer"])
+def test_tracker_requires_the_native_runtime(monkeypatch, make):
+    """With the runtime unable to build, constructing the cell processor
+    or the producer raises the compiler's RuntimeError (io/native.py::
+    load) and takes no numpy path."""
+    def no_compiler():
+        raise RuntimeError("g++ failed: no compiler")
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_stale", lambda: True)
+    monkeypatch.setattr(tnative, "build", no_compiler)
+    _st, _cell, tst, tcell = _pair("normal", 2)
+    with pytest.raises(RuntimeError, match="no compiler"):
+        make(tst, tcell)
 
 
 def test_native_build_stays_out_of_native_dir(lib):
