@@ -8,8 +8,9 @@ Phases, each fatal on failure:
      with nvcc (sm_90a): ``cuda_build.build``, one nvcc per source (two
      sources, ``pss_corr.cu`` and ``pss_corr_fold.cu``, both including
      ``hankel_mma.cuh``), all started together with the g++ build of the
-     tracker's native runtime (``io/native.py::build``: ``native/*.cpp``
-     and ``csrc/cell_rows_tick.cpp`` into the port's ``build/``); the
+     tracker's native runtime (``io/native.py::build``: ``native/*.cpp``,
+     ``csrc/cell_rows_tick.cpp`` and ``csrc/stage_tick.cpp`` into the
+     port's ``build/``); the
      ptxas register and
      spill lines of the seven tensor-core kernel instances, keyed by trait
      and sink (the five ``map_tc_kernel`` instances: the maps bf16, int8,

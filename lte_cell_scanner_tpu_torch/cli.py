@@ -427,8 +427,8 @@ def _print_profile(args) -> None:
 
 
 def _print_track_profile(args) -> None:
-    """The span table, then how the tick's device program ran
-    (tracker/device_loop.py::tick_counts)."""
+    """The span table, then how the tick's device program ran and how
+    its inputs were staged (tracker/device_loop.py::tick_counts)."""
     from .tracker.device_loop import tick_counts
     _print_profile(args)
     if args.profile:

@@ -1,5 +1,6 @@
 """ctypes binding of the repository's C++ runtime (``native/*.cpp``) and
-of the port's own addition to it (``csrc/cell_rows_tick.cpp``).
+of the port's own additions to it (``csrc/cell_rows_tick.cpp``,
+``csrc/stage_tick.cpp``).
 
 The runtime covers the reference's native sample path and the tracker's
 per-cell math: LUT-based 8-bit IQ conversion, a lock-free SPSC byte ring
@@ -8,7 +9,8 @@ dongle source's reader thread, ``io/rtlsdr.py``), the producer's per-cell symbol
 (``ingest.cpp``), and the tracker's RS-window statistics, feedback
 chain, CE interpolation, sync SNR, demod and tail-biting Viterbi
 (``tracker_math.cpp``), and the device loop's cell tick over that
-math (``cell_rows_tick.cpp``, which calls the runtime's ``port_tick``).
+math (``cell_rows_tick.cpp``, which calls the runtime's ``port_tick``),
+and the device loop's host staging of a tick (``stage_tick.cpp``).
 The port binds only the entry points it calls.
 
 The port builds its own copy: ``g++`` compiles the sources with the
@@ -42,7 +44,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 _ROOT = _PKG.parent
 SOURCES = (_ROOT / "native" / "ingest.cpp",
            _ROOT / "native" / "tracker_math.cpp",
-           _PKG / "csrc" / "cell_rows_tick.cpp")
+           _PKG / "csrc" / "cell_rows_tick.cpp",
+           _PKG / "csrc" / "stage_tick.cpp")
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libingest.so"
 # native/Makefile's CXXFLAGS
@@ -133,6 +136,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         + [ctypes.c_void_p] * 6
         + [ctypes.c_int64] * 3 + [ctypes.c_double] * 4 + [ctypes.c_int64]
         + [ctypes.c_void_p] * 16 + [ctypes.c_int64] + [ctypes.c_void_p] * 4)
+    lib.stage_tick_inputs.restype = ctypes.c_int64
+    lib.stage_tick_inputs.argtypes = (
+        [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
+    lib.stage_tick_plan.restype = ctypes.c_int64
+    lib.stage_tick_plan.argtypes = (
+        [ctypes.c_int64] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p])
     lib.get_fd_batch.restype = ctypes.c_double
     lib.get_fd_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,

@@ -43,7 +43,6 @@ from ..ops.dsp import extract_center_subcarriers
 _CN = np.concatenate([np.arange(-36, 0), np.arange(1, 37)])
 _BUCKET = 32            # symbol-axis rounding
 _EXT_BUCKET = 16384     # extended raw-block rounding (samples)
-_ALIGN = 16             # byte alignment of each section of an upload
 
 
 @lru_cache(maxsize=None)
@@ -141,99 +140,154 @@ def _get_fd_native(cell_pdus: Sequence[Tuple[object, object]], state,
     return out
 
 
-def _stage_block_inputs(cell_pdus: Sequence[Tuple[object, object]],
-                        raw_block, block_seq: int):
-    """Host staging shared by the batched device paths: per-cell symbol
-    metadata padded to the (B, S) bucket, plus either the [B, S, 128]
-    window copies (raw_block=None) or the extended raw block + per-
-    symbol start indices for the on-device window gather.
+class _Staging:
+    """A tick's host staging buffer and its one upload.  The native
+    stager (csrc/stage_tick.cpp, through stage_inputs and device_loop's
+    plan) writes every section into ``buf`` in the layout the device
+    program reads and records the layout in ``lay``; ``send`` makes the
+    one copy and the typed views are taken of its result.
 
-    Returns (ext, data, starts, fo, late, nse, valid, init_phase), all
-    host numpy (complex128/float64); exactly one of ext/data is not
-    None."""
-    B = len(cell_pdus)
-    s_max = max(len(c) for _, c in cell_pdus)
-    S = -(-s_max // _BUCKET) * _BUCKET
+    ``reuse``: on the card, one pinned buffer (the arena) serves every
+    tick and grows to the largest seen; it is rewritten only once the
+    previous tick's copy from it has completed (an event recorded after
+    the copy), and each tick's copy lands in a fresh device buffer.
+    Otherwise each tick writes a fresh buffer (pinned on the card), which
+    off the card is itself the tensors handed out.  ``on_grow`` is
+    called when a reused arena is allocated.  One tick at a time."""
 
-    fo = np.zeros((B, S))
-    late = np.zeros((B, S))
-    nse = np.zeros((B, S))
-    valid = np.zeros((B, S), dtype=bool)
-    init_phase = np.zeros(B)
-    use_block = raw_block is not None
-    data = None if use_block else np.zeros((B, S, 128), np.complex128)
-    starts = np.zeros((B, S), dtype=np.int64) if use_block else None
-    appendix = [] if use_block else None
-    n_app = 0
-    L = len(raw_block) if use_block else 0
-    for b, (proc, chunk) in enumerate(cell_pdus):
-        m = len(chunk)
-        if use_block:
-            cs = chunk.start if (chunk.start is not None
-                                 and chunk.block_seq == block_seq) \
-                else np.full(m, -1, np.int64)
-            ok = (cs >= 0) & (cs <= L - 128)
-            row = np.empty(m, np.int64)
-            row[ok] = cs[ok]
-            n_bad = int(m - ok.sum())
-            if n_bad:                      # straddlers / stale blocks
-                row[~ok] = L + 128 * (n_app + np.arange(n_bad))
-                appendix.append(np.ascontiguousarray(
-                    chunk.data[~ok]).ravel())
-                n_app += n_bad
-            starts[b, :m] = row
+    def __init__(self, device: torch.device, reuse: bool = False,
+                 on_grow=None):
+        from ..io.native import load
+        self.lib = load()
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.reuse = reuse and self.pinned
+        self.on_grow = on_grow
+        self.cap = 0
+        self.buf = None
+        self.lay = np.zeros(15, np.int64)
+        self.lay_at = self.lay.ctypes.data
+        self._copied = torch.cuda.Event() if self.reuse else None
+
+    def _alloc(self, cap: int) -> torch.Tensor:
+        return torch.empty(cap, dtype=torch.uint8, pin_memory=self.pinned)
+
+    def take(self) -> None:
+        """Make ``buf`` writable for this tick."""
+        if self.reuse and self.buf is not None:
+            self._copied.synchronize()
         else:
-            data[b, :m] = chunk.data
-        fo[b, :m] = chunk.fo
-        late[b, :m] = chunk.late
-        nse[b, :m] = _nse_of_chunk(chunk, proc.cell.n_symb_dl())
-        valid[b, :m] = True
-        init_phase[b] = proc.bulk_phase_offset
-    ext = None
-    if use_block:
-        # padding rows gather zeros from one trailing guard window; ext
-        # is zero-padded to the _EXT_BUCKET so the card sees few shapes
-        pad_at = L + 128 * n_app
-        starts[~valid] = pad_at
-        ext_len = -(-(pad_at + 128) // _EXT_BUCKET) * _EXT_BUCKET
-        ext = np.zeros(ext_len, np.complex128)
-        ext[:L] = np.asarray(raw_block)
-        if n_app:
-            ext[L: pad_at] = np.concatenate(appendix)
-    return ext, data, starts, fo, late, nse, valid, init_phase
+            self.buf = self._alloc(self.cap)
+
+    def write(self, entry, *head, keep: int = 0) -> None:
+        """Call a stager entry (its own leading arguments ``head``) on
+        ``buf``; when it needs more room, grow ``buf`` to the next power
+        of two, keeping its first ``keep`` bytes, and call again."""
+        need = entry(*head, self.buf.data_ptr(), self.cap, self.lay_at)
+        if need:
+            cap = 1 << (int(need) - 1).bit_length()
+            buf = self._alloc(cap)
+            buf[:keep].copy_(self.buf[:keep])
+            self.buf, self.cap = buf, cap
+            if self.reuse and self.on_grow is not None:
+                self.on_grow()
+            if entry(*head, self.buf.data_ptr(), self.cap, self.lay_at):
+                raise RuntimeError("tick stager: the grown buffer is short")
+
+    def send(self, n: int) -> torch.Tensor:
+        """The first n bytes on the device: one copy into a fresh buffer
+        on the card, the fresh host buffer itself elsewhere."""
+        if not self.pinned:
+            return self.buf[:n]
+        out = torch.empty(n, dtype=torch.uint8, device=self.device)
+        out.copy_(self.buf[:n], non_blocking=True)
+        if self.reuse:
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return out
 
 
-def upload(arrays: Sequence[np.ndarray], device: torch.device
-           ) -> List[torch.Tensor]:
-    """Host arrays -> tensors on ``device`` through ONE copy: the arrays
-    are laid out in one byte buffer (each section 16-byte aligned;
-    pinned memory on the card) that crosses once and is viewed back as
-    typed tensors of the same shapes."""
-    arrays = [np.ascontiguousarray(a) for a in arrays]
-    offs = []
-    off = 0
-    for a in arrays:
-        off = -(-off // _ALIGN) * _ALIGN
-        offs.append(off)
-        off += a.nbytes
-    host = torch.empty(max(off, 1), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    hb = host.numpy()
-    for a, o in zip(arrays, offs):
-        hb[o: o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    buf = host.to(device, non_blocking=True)
-    return [buf[o: o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            .view(a.shape) for a, o in zip(arrays, offs)]
+class _Sections:
+    """Typed views of the sections of one uploaded staging buffer: one
+    view of the whole buffer per type, strided views of it per
+    section."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+        self.typed = {}
+
+    def __call__(self, off: int, dtype: torch.dtype, shape) -> torch.Tensor:
+        t = self.typed.get(dtype)
+        if t is None:
+            t = self.typed[dtype] = self.buf.view(dtype)
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 1, 0, -1):
+            stride[i - 1] = stride[i] * shape[i]
+        return t.as_strided(shape, stride, off // dtype.itemsize)
 
 
-def wire_planes(ext: np.ndarray) -> np.ndarray:
-    """The extended raw block as [n, 2] (re, im) planes in the narrowest
-    exact wire type: float16 for blocks on the 8-bit ADC grid (dongle
-    codes /128 are exact in float16's 11-bit mantissa), else float64,
-    the tick's working type on every device."""
-    from ..ops.corr_cuda import is_adc_grid
-    wire = np.float16 if is_adc_grid(ext) else np.float64
-    return np.ascontiguousarray(ext.view(np.float64).reshape(-1, 2), wire)
+def stage_inputs(cell_pdus: Sequence[Tuple[object, object]], raw_block,
+                 block_seq: int, staging: _Staging) -> Tuple[int, int]:
+    """The staging shared by the batched device paths, in one native call
+    (csrc/stage_tick.cpp::stage_tick_inputs) into ``staging``: per-cell
+    symbol metadata padded to the (B, S) bucket, plus either the [B, S,
+    128] window copies (raw_block=None) or the extended raw block as
+    (re, im) planes in the narrowest exact wire type -- float16 for
+    blocks on the 8-bit ADC grid (dongle codes /128 are exact in
+    float16's 11-bit mantissa), else float64, the tick's working type on
+    every device -- with per-symbol start indices for the on-device
+    window gather.  Symbols whose window is not in the block (stale
+    blocks, straddlers, chunks with no starts) ride in an appendix of
+    their windows; padding rows gather zeros from one trailing guard
+    window, and the extended block is zero-padded to the _EXT_BUCKET so
+    the card sees few shapes.  Returns (B, S)."""
+    B = len(cell_pdus)
+    ms = [len(c) for _, c in cell_pdus]
+    S = -(-max(ms) // _BUCKET) * _BUCKET
+    use_block = raw_block is not None
+    keep, cells, phase = [], [], []
+    for (proc, chunk), m in zip(cell_pdus, ms):
+        data = np.ascontiguousarray(chunk.data, np.complex128)
+        fo = np.ascontiguousarray(chunk.fo, np.float64)
+        late = np.ascontiguousarray(chunk.late, np.float64)
+        st = chunk.start if use_block and chunk.block_seq == block_seq \
+            else None
+        if st is not None:
+            st = np.ascontiguousarray(st, np.int64)
+        if data.shape != (m, 128) or fo.shape != (m,) \
+                or late.shape != (m,) \
+                or (st is not None and st.shape != (m,)):
+            raise ValueError(f"PduChunk of {m} symbols: data {data.shape}, "
+                             f"fo {fo.shape}, late {late.shape}")
+        keep += (data, fo, late, st)     # referenced until the call returns
+        cells += (data.ctypes.data, fo.ctypes.data, late.ctypes.data,
+                  0 if st is None else st.ctypes.data, m, chunk.sym0,
+                  proc.cell.n_symb_dl())
+        phase.append(proc.bulk_phase_offset)
+    cells = np.array(cells, np.int64)
+    phase = np.array(phase, np.float64)
+    raw = np.ascontiguousarray(raw_block, np.complex128) if use_block \
+        else None
+    staging.take()
+    staging.write(staging.lib.stage_tick_inputs, B, S, cells.ctypes.data,
+                  phase.ctypes.data, None if raw is None else raw.ctypes.data,
+                  0 if raw is None else len(raw), _EXT_BUCKET)
+    return B, S
+
+
+def input_views(view: _Sections, lay: Sequence[int], B: int, S: int):
+    """(planes, data, starts, fln, init_phase) of stage_inputs' sections,
+    as recorded in ``lay``: planes [n_ext, 2] and starts [B, S], or data
+    [B, S, 128, 2] (the others None); fln [B, 3, S] (fo, late, nse);
+    init_phase [B]."""
+    f8 = torch.float64
+    if lay[3] >= 0:
+        planes = view(lay[2], f8 if lay[0] else torch.float16, (lay[1], 2))
+        data, starts = None, view(lay[3], torch.int64, (B, S))
+    else:
+        planes, starts = None, None
+        data = view(lay[2], f8, (B, S, 128, 2))
+    return (planes, data, starts, view(lay[4], f8, (B, 3, S)),
+            view(lay[5], f8, (B,)))
 
 
 def planes_to_complex(planes: torch.Tensor, rdt: torch.dtype
@@ -265,27 +319,19 @@ def batched_get_fd(cell_pdus: Sequence[Tuple[object, object]], state,
         raise ValueError(f"unknown get_fd backend {backend!r}")
 
     dev = resolve_device(device)
-    rdt = torch.float64
-    wdt = np.float64
-    (ext, data, starts, fo, late, nse, valid, init_phase) = \
-        _stage_block_inputs(cell_pdus, raw_block, block_seq)
-    meta = [np.stack([fo, late, nse], axis=1).astype(wdt),
-            init_phase.astype(wdt)]
+    staging = _Staging(dev)
+    B, S = stage_inputs(cell_pdus, raw_block, block_seq, staging)
+    lay = staging.lay.tolist()
+    planes, data, starts, fln, ph = input_views(
+        _Sections(staging.send(lay[6])), lay, B, S)
     fc = (float(state.fc_requested), float(state.fc_programmed),
           float(state.fs_programmed))
-    if ext is not None:
-        planes, starts_t, fln, ph = upload(
-            [wire_planes(ext), starts] + meta, dev)
+    core_args = (fln[:, 0], fln[:, 1], fln[:, 2], fln[:, 2] > 0, ph, *fc)
+    if planes is not None:
         syms, final = _get_fd_block_core(
-            planes_to_complex(planes, rdt), starts_t, fln[:, 0], fln[:, 1],
-            fln[:, 2], fln[:, 2] > 0, ph, *fc)
+            planes_to_complex(planes, torch.float64), starts, *core_args)
     else:
-        d, fln, ph = upload([np.ascontiguousarray(
-            data.view(np.float64).reshape(data.shape + (2,)), wdt)] + meta,
-            dev)
-        syms, final = _get_fd_core(
-            torch.view_as_complex(d), fln[:, 0], fln[:, 1], fln[:, 2],
-            fln[:, 2] > 0, ph, *fc)
+        syms, final = _get_fd_core(torch.view_as_complex(data), *core_args)
     syms = syms.to(torch.complex128).cpu().numpy()
     final = final.double().cpu().numpy()
 

@@ -121,12 +121,15 @@ class TrackedCellProcessor:
         self._native = load()
         # the native cell ticks' state (cell_tick, cell_rows_tick):
         # pending CRS rows, pair carry, and the ac_td history, stacked
-        # per port
+        # per port; the shift and conjugated-RS tables are read by
+        # address there and by the device loop's stager
+        # (device_loop.py::stage_tick)
         self._shift_i64 = np.ascontiguousarray(self.rs_dl.shift_table,
                                                np.int64)
         self._shift_at = self._shift_i64.ctypes.data
         self._rs_conj = np.ascontiguousarray(np.conj(self.rs_dl.rs_table),
                                              np.complex128)
+        self._rs_conj_at = self._rs_conj.ctypes.data
         self._alloc_pending(512)
         self._carry_ce72 = np.zeros((n_ports, 72), np.complex128)
         self._carry_scal = np.zeros((n_ports, 4))

@@ -21,12 +21,15 @@ same native runtime as the dense path
 (cell_tracker.TrackedCellProcessor.process_device).
 
 A tick crosses the host-device boundary twice: ONE upload (the raw block
-as (re, im) planes -- float16 when it sits on the 8-bit ADC grid --
-plus the packed gather metadata, laid out in one pinned byte buffer,
-batched.upload) and ONE download (a packed float vector: raw-CE planes,
-special-row planes and final phases).  The gather indices are built on
-the host, which knows every label; masked rows carry a zero table value
-(CRS) or a zero mask (special rows), so they come back as zeros.
+as (re, im) planes -- float16 when it sits on the 8-bit ADC grid -- plus
+the gather metadata) and ONE download (a packed float vector: raw-CE
+planes, special-row planes and final phases).  The gather indices are
+built on the host, which knows every label; masked rows carry a zero
+table value (CRS) or a zero mask (special rows), so they come back as
+zeros.  The host staging is two native calls (csrc/stage_tick.cpp) that
+write every section into one byte buffer in the layout the program
+reads: on the card a pinned arena that every tick reuses, sent in one
+copy into a fresh device buffer (batched._Staging).
 
 On the card the device program is about 50 small complex128 operations,
 each a few microseconds of device work behind more of host dispatch.
@@ -47,26 +50,27 @@ import torch
 
 from ..device import resolve_device
 from ..utils.debug import stage
-from .batched import (_get_fd_block_core, _get_fd_core,
-                      _stage_block_inputs, planes_to_complex, upload,
-                      wire_planes)
+from .batched import (_get_fd_block_core, _get_fd_core, _Sections,
+                      _Staging, input_views, planes_to_complex,
+                      stage_inputs)
 
 _RS_BUCKET = 64        # rs-row / special-row axis rounding
 _GRAPHS_MAX = 32       # buckets remembered (seen once, or captured)
 
 # How the tick's device program ran since the process started: captured
 # as a CUDA graph, replayed from one, run eagerly (the CPU, and a
-# bucket's first tick), and graphs dropped as least recently used.
-tick_counts = {"captures": 0, "replays": 0, "eager": 0, "evictions": 0}
+# bucket's first tick), and graphs dropped as least recently used; and
+# how its inputs were staged: ticks whose inputs went as float16 planes
+# (the 8-bit ADC grid) and as float64, and pinned arenas allocated.
+tick_counts = {"captures": 0, "replays": 0, "eager": 0, "evictions": 0,
+               "wire_f16": 0, "wire_f64": 0, "arenas": 0}
 # bucket key -> its _TickGraph, or None after the bucket's first tick
 _graphs: "OrderedDict[tuple, Optional[_TickGraph]]" = OrderedDict()
+# device -> its staging buffer (_staging)
+_stagings: "dict[torch.device, _Staging]" = {}
 # the timings dict of the tick this thread is launching, for the span
 # "program.capture" (_tick_program's arguments are fixed)
 _launching = threading.local()
-
-
-def _bucket_up(n: int, b: int = _RS_BUCKET) -> int:
-    return max(b, -(-n // b) * b)
 
 
 def _tick_math(planes, data, starts, fln, init_phase, fc_requested,
@@ -184,27 +188,51 @@ def _tick_program(planes, data, starts, fln, init_phase, fc_requested,
         return graph(args)
 
 
-def _plans(cell_pdus):
+def _staging(dev: torch.device) -> _Staging:
+    """The device's staging buffer: one pinned arena reused by every
+    tick on the card (tick_counts["arenas"] counts its allocations), a
+    fresh buffer per tick elsewhere."""
+    st = _stagings.get(dev)
+    if st is None:
+        st = _stagings[dev] = _Staging(dev, reuse=True,
+                                       on_grow=_count_arena)
+    return st
+
+
+def _count_arena() -> None:
+    tick_counts["arenas"] += 1
+
+
+def _stage_plan(cell_pdus: Sequence[Tuple[object, object]], S: int,
+                staging: _Staging) -> list:
     """Per-cell structural plans from each processor's running (slot,
-    sym) counter: labels, CRS shifts, the RS rows of each port and the
-    special rows (host-known label arithmetic)."""
+    sym) counter -- (slots_a, syms_a, sh_all [m, 4], rs_sel per port,
+    spec_sel): labels, CRS shifts, the RS rows of each port and the
+    special rows, as views of one fresh int64 buffer -- and from them the
+    gather tables in ``staging``, in one native call
+    (csrc/stage_tick.cpp::stage_tick_plan)."""
+    B = len(cell_pdus)
+    ms = [len(c) for _, c in cell_pdus]
+    cells = []
+    for (proc, _), m in zip(cell_pdus, ms):
+        n_symb = proc.cell.n_symb_dl()
+        cells += (m, proc.slot_num * n_symb + proc.sym_num, n_symb,
+                  proc.cell.n_ports, proc._shift_at, proc._rs_conj_at)
+    cells = np.array(cells, np.int64)
+    buf = np.empty(5 * B + 11 * sum(ms), np.int64)
+    staging.write(staging.lib.stage_tick_plan, B, S, cells.ctypes.data,
+                  _RS_BUCKET, buf.ctypes.data, keep=int(staging.lay[6]))
+    counts = buf[: 5 * B].tolist()       # per cell: nr of ports 0-3, nq
     plans = []
-    for proc, chunk in cell_pdus:
-        m = len(chunk)
-        c = proc.cell
-        n_symb = c.n_symb_dl()
-        start = proc.slot_num * n_symb + proc.sym_num
-        k = start + np.arange(m)
-        slots_a = (k // n_symb) % 20
-        syms_a = k % n_symb
-        sh_all = proc.rs_dl.shift_table[slots_a, syms_a]       # [m, 4]
-        rs_sel = [np.nonzero(sh_all[:, p] >= 0)[0]
-                  for p in range(c.n_ports)]
-        sync = ((slots_a == 0) | (slots_a == 10)) \
-            & ((syms_a == n_symb - 2) | (syms_a == n_symb - 1))
-        pbch = (slots_a == 1) & (syms_a <= 3)
-        spec_sel = np.nonzero(sync | pbch)[0]
-        plans.append((slots_a, syms_a, sh_all, rs_sel, spec_sel))
+    o = 5 * B
+    for b, ((proc, _), m) in enumerate(zip(cell_pdus, ms)):
+        rs = o + 6 * m
+        plans.append((buf[o: o + m], buf[o + m: o + 2 * m],
+                      buf[o + 2 * m: rs].reshape(m, 4),
+                      [buf[rs + p * m: rs + p * m + counts[5 * b + p]]
+                       for p in range(proc.cell.n_ports)],
+                      buf[o + 10 * m: o + 10 * m + counts[5 * b + 4]]))
+        o += 11 * m
     return plans
 
 
@@ -212,58 +240,30 @@ def stage_tick(cell_pdus: Sequence[Tuple[object, object]], state,
                raw_block: np.ndarray = None, block_seq: int = -1,
                device=None, timings: dict = None):
     """Host staging of one tick and its single upload.  Returns (the
-    arguments of _tick_program, plans, the packed output's (B, P, NR,
-    NQ)).  ``timings``: the spans "stage.inputs" (the symbols' windows
-    and metadata as they go on the wire), "stage.plan" (the plans and
-    gather tables) and "stage.upload" (utils/debug.py::stage)."""
+    arguments of _tick_program, plans (_stage_plan), the packed output's
+    (B, P, NR, NQ)).  The tensors and plans of a tick are its own: no
+    later tick writes them.  ``timings``: the spans "stage.inputs" (the
+    symbols' windows and metadata as they go on the wire:
+    batched.stage_inputs), "stage.plan" (_stage_plan) and "stage.upload"
+    (the one copy and the typed views) (utils/debug.py::stage)."""
     dev = resolve_device(device)
-    wdt = np.float64
-    B = len(cell_pdus)
+    staging = _staging(dev)
     with stage("stage.inputs", timings=timings, host=True):
-        ext, data, starts, fo, late, nse, _valid, init_phase = \
-            _stage_block_inputs(cell_pdus, raw_block, block_seq)
-        if ext is not None:
-            head = [wire_planes(ext), starts]
-        else:
-            head = [np.ascontiguousarray(
-                data.view(np.float64).reshape(data.shape + (2,)), wdt)]
+        B, S = stage_inputs(cell_pdus, raw_block, block_seq, staging)
+        tick_counts["wire_f64" if staging.lay[0] else "wire_f16"] += 1
     with stage("stage.plan", timings=timings, host=True):
-        S = fo.shape[1]
-        plans = _plans(cell_pdus)
-        nr_max = max([1] + [len(s) for p in plans for s in p[3]])
-        nq_max = max([1] + [len(p[4]) for p in plans])
-        NR = _bucket_up(nr_max)
-        NQ = _bucket_up(nq_max)
-        P = max(proc.cell.n_ports for proc, _ in cell_pdus)
-
-        cols = 6 * np.arange(12)
-        rs_flat = np.zeros((B, P, NR, 12), np.int64)
-        rs_tab = np.zeros((B, P, NR, 12, 2), wdt)
-        spec_rows = np.zeros((B, NQ), np.int64)
-        spec_mask = np.zeros((B, NQ), wdt)
-        for b, ((proc, _chunk), plan) in enumerate(zip(cell_pdus, plans)):
-            slots_a, syms_a, sh_all, rs_sel, spec_sel = plan
-            for p, sel in enumerate(rs_sel):
-                n = len(sel)
-                rs_flat[b, p, :n] = ((b * S + sel) * 72)[:, None] \
-                    + sh_all[sel, p][:, None] + cols
-                tab = proc._rs_conj[slots_a[sel], syms_a[sel]]  # [n, 12]
-                rs_tab[b, p, :n, :, 0] = tab.real
-                rs_tab[b, p, :n, :, 1] = tab.imag
-            spec_rows[b, : len(spec_sel)] = b * S + spec_sel
-            spec_mask[b, : len(spec_sel)] = 1.0
-
-        fln = np.stack([fo, late, nse], axis=1).astype(wdt)  # [B, 3, S]
-        tail = [fln, init_phase.astype(wdt), rs_flat, rs_tab, spec_rows,
-                spec_mask]
+        plans = _stage_plan(cell_pdus, S, staging)
     with stage("stage.upload", timings=timings):
-        *head, fln_t, ph_t, rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t \
-            = upload(head + tail, dev)
-    head = (head[0], None, head[1]) if ext is not None \
-        else (None, head[0], None)
-    args = head + (fln_t, ph_t, float(state.fc_requested),
-                   float(state.fc_programmed), float(state.fs_programmed),
-                   rs_flat_t, rs_tab_t, spec_rows_t, spec_mask_t)
+        lay = staging.lay.tolist()
+        view = _Sections(staging.send(lay[14]))
+        P, NR, NQ = lay[7:10]
+        args = input_views(view, lay, B, S) + (
+            float(state.fc_requested), float(state.fc_programmed),
+            float(state.fs_programmed),
+            view(lay[10], torch.int64, (B, P, NR, 12)),
+            view(lay[11], torch.float64, (B, P, NR, 12, 2)),
+            view(lay[12], torch.int64, (B, NQ)),
+            view(lay[13], torch.float64, (B, NQ)))
     return args, plans, (B, P, NR, NQ)
 
 

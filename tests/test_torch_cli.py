@@ -173,7 +173,8 @@ def test_track_profile_nests_the_tracker_spans(capsys):
     assert rc == 0
     table, counts = out.split("\n\nstage")[1].split("\n\n")
     assert re.fullmatch(r"tick program: captures \d+, replays \d+, "
-                        r"eager \d+, evictions \d+\n", counts)
+                        r"eager \d+, evictions \d+, wire_f16 \d+, "
+                        r"wire_f64 \d+, arenas \d+\n", counts)
     table = table.splitlines()[1:]
     rows = {ln.split()[0]: ln for ln in table}
     depth = {k: (len(ln) - len(ln.lstrip())) // 2 for k, ln in rows.items()}

@@ -1,7 +1,9 @@
 """The tracker tick's device program as a CUDA graph
 (tracker/device_loop.py::_tick_program): the bucket key, the eager path
 off the card, the module attribute the tick goes through, and on the
-card the replayed graph against the eager program, bit for bit.
+card the replayed graph against the eager program, bit for bit; and on
+the card the tick's staging (stage_tick) through its reused pinned
+arena against the CPU's, byte for byte.
 
 This file imports neither JAX nor the TPU package; the card test skips
 without a CUDA device, and runs on the card with
@@ -34,8 +36,10 @@ def cuda():
 
 @pytest.fixture
 def fresh(monkeypatch):
-    """No bucket seen yet, and the counts from zero."""
+    """No bucket seen yet, no staging buffer, and the counts from
+    zero."""
     monkeypatch.setattr(device_loop, "_graphs", OrderedDict())
+    monkeypatch.setattr(device_loop, "_stagings", {})
     counts = dict.fromkeys(device_loop.tick_counts, 0)
     monkeypatch.setattr(device_loop, "tick_counts", counts)
     return counts
@@ -94,7 +98,8 @@ def test_tick_program_runs_eagerly_on_the_cpu(fresh):
     assert all(torch.equal(o, want) for o in outs)
     assert len({o.data_ptr() for o in outs}) == 3
     assert fresh == {"captures": 0, "replays": 0, "eager": 3,
-                     "evictions": 0}
+                     "evictions": 0, "wire_f16": 1, "wire_f64": 0,
+                     "arenas": 0}
     assert not device_loop._graphs
 
 
@@ -148,8 +153,10 @@ def test_replayed_tick_equals_the_eager_program_bit_for_bit(
             kept.append((out, want.clone()))
     for out, want in kept:
         assert torch.equal(out, want)
+    # the arena grows once for each bucket: (2, 128)'s block is longer
     assert fresh == {"captures": 2, "replays": 2 * (ticks - 2), "eager": 2,
-                     "evictions": 0}
+                     "evictions": 0, "wire_f16": 2 * ticks * adc_grid,
+                     "wire_f64": 2 * ticks * (not adc_grid), "arenas": 2}
     assert len(device_loop._graphs) == 2
 
 
@@ -162,4 +169,53 @@ def test_least_recently_used_graph_is_evicted(cuda, fresh, monkeypatch):
     for args in (a, a, a, b, a, a):
         assert torch.equal(_tick_program(*args), _tick_math(*args))
     assert fresh == {"captures": 2, "replays": 1, "eager": 3,
-                     "evictions": 1}
+                     "evictions": 1, "wire_f16": 2, "wire_f64": 0,
+                     "arenas": 2}
+
+
+def _bytes(t: torch.Tensor) -> bytes:
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+@pytest.mark.parametrize("adc_grid", [True, False],
+                         ids=["float16-planes", "float64-planes"])
+def test_staged_tick_on_the_card_equals_the_cpu_and_stays(cuda, fresh,
+                                                          adc_grid):
+    """Six ticks of one bucket staged for the card, each with other
+    contents, and each staged for the CPU too: every argument on the
+    card equals the CPU's byte for byte, and the plans equal; the pinned
+    arena, allocated at the first tick, serves every later one; and no
+    tick's arguments or plans change while the later ticks are staged
+    (each copy lands in a fresh device buffer; the arena is rewritten
+    only once the copy from it completed)."""
+    kept = []
+    for seed in range(6):
+        pairs, state, block = staged_cells(4, 64, adc_grid, seed)
+        args, plans, shape = device_loop.stage_tick(
+            pairs, state, raw_block=block, block_seq=1, device=cuda)
+        want, want_plans, want_shape = device_loop.stage_tick(
+            pairs, state, raw_block=block, block_seq=1, device="cpu")
+        assert shape == want_shape
+        for name, g, w in zip(NAMES, args, want):
+            if isinstance(w, torch.Tensor):
+                assert g.device.type == "cuda" and g.dtype == w.dtype \
+                    and g.shape == w.shape, name
+                assert _bytes(g) == _bytes(w), (seed, name)
+            else:
+                assert g == w, name
+        for p, w in zip(plans, want_plans):
+            for x, y in zip(p[:3] + (p[4],), w[:3] + (w[4],)):
+                assert x.tobytes() == y.tobytes()
+            assert [s.tolist() for s in p[3]] == [s.tolist() for s in w[3]]
+        if seed == 0:
+            arenas = fresh["arenas"]
+        kept.append((args, plans, [_bytes(a) for a in args
+                                   if isinstance(a, torch.Tensor)],
+                     [p[0].tobytes() + p[1].tobytes() for p in plans]))
+    assert fresh["arenas"] == arenas == 1
+    assert fresh["wire_f16" if adc_grid else "wire_f64"] == 12
+    for args, plans, arg_bytes, plan_bytes in kept:
+        assert [_bytes(a) for a in args
+                if isinstance(a, torch.Tensor)] == arg_bytes
+        assert [p[0].tobytes() + p[1].tobytes() for p in plans] == \
+            plan_bytes

@@ -294,7 +294,7 @@ def _rows_tick_inputs(rng, proc, n):
     chunk = tprod.PduChunk(data=np.zeros((n, 128), np.complex128),
                            late=np.zeros(n), fo=50.0 + 0.05 * k,
                            ft=100.0 + 0.01 * k, sym0=0)
-    plan = tdl._plans([(proc, chunk)])[0]
+    plan = tdl.stage_tick([(proc, chunk)], proc.state, device="cpu")[1][0]
     nr = max(len(sel) for sel in plan[3]) + 3
     ce_rows = rng.normal(size=(4, nr, 12)) + 1j * rng.normal(size=(4, nr, 12))
     spec = rng.normal(size=(len(plan[4]), 72)) \
